@@ -11,17 +11,30 @@ Phases, each of which fails the run:
   3. scan kernel K3 against its plain version: bit-equal at the main
      path's shapes and at odd lengths;
   4. blend kernel K1 against its plain version on the main path's real
-     tile lists: max abs error <= 1e-5 on colors and on final_t;
-  5. the main path at full width: the garden-scale model (200,000 live
+     tile lists: max abs error <= 1e-5 on colors and on final_t; backward
+     blend kernel K2 against its plain version on the same lists with
+     random cotangents: every output finite, and max |K2 - plain| <=
+     1e-4 max |plain| for each (the slack covers the order of the float
+     atomics);
+  5. the render path at full width: the garden-scale model (200,000 live
      Gaussians in a capacity of 262,144, SH 3) saved to PLY, loaded on the
      card and rendered by render_batch for 2 cameras at 1296x840 with
-     32x16 tiles; launch counters must show both kernels ran, the images
+     32x16 tiles; launch counters must show K1 and K3 ran, the images
      must be finite and sane, and a small scene rendered on the card must
      agree with the plain CPU reference;
-  6. timings: render_batch (host clock, median of 20 after warm-up) and
-     each kernel, its plain version and the library call (CUDA events,
-     with the L2 cache flushed before each launch), beside the least time
-     the card could take.
+  6. the training path at full width, the main path: 10 train_steps of
+     testing.garden_training (the step bench.py times: bsz 2, random
+     ground truth, the default optimizer); the launch counters must show
+     K1, K2 and K3 in every step, every loss and parameter must be
+     finite, the 10th loss below the 1st, and the state at iteration 20
+     with Adam count 10; one train_step on the small flagship scene on the
+     card must agree with the same step on the CPU (plain versions):
+     loss to 1e-5 relative, Adam moments to atol 1e-4, rtol 1e-3;
+  7. timings: render_batch and train_step (host clock, median of 20 after
+     2 warm-ups), a profiler breakdown of each, and each kernel, its
+     plain version and the library call (CUDA events, with the L2 cache
+     flushed before each launch), beside the least time the card could
+     take.
 
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -46,8 +59,17 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # K1 work per (entry, pixel) pair: one exp and about 15 f32 operations
 K1_OPS_PER_PAIR = 16
+# K2 rebuilds K1's alpha and T for every pair it walks (the same 16), and
+# for every pair the forward blended adds about 35 f32 operations of
+# gradient arithmetic and 9 adds that sum the pair into its entry
+K2_OPS_PER_BLENDED = 44
 TILE_W, TILE_H, MAX_PER_TILE, BSZ = 32, 16, 2048, 2
 K1_TOL = 1e-5
+K2_REL_TOL = 1e-4
+# one small train_step, card vs CPU: each Adam moment leaf within this
+# much of its largest value (the rtol of the whole-step gradient bound)
+MOMENT_REL_TOL = 1e-3
+TRAIN_STEPS = 10
 
 
 def require(ok, what):
@@ -89,7 +111,7 @@ class Timer:
 def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, chunk=64):
     """(entry, pixel) pairs the front-to-back walk must evaluate: per
     pixel, the entries of its slot's span up to and including the one that
-    stops it (or the whole span)."""
+    stops it (or the whole span); and, of those, the pairs it blends."""
     from grendel_tpu_torch.ops.blend import T_EPS, splat_alpha
     from grendel_tpu_torch.ops.rasterize_torch import slot_pixels
 
@@ -99,6 +121,7 @@ def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, chunk=64):
     t = torch.ones_like(px)
     done = torch.zeros_like(px, dtype=torch.bool)
     pairs = torch.zeros((), dtype=torch.int64, device=px.device)
+    blended = torch.zeros((), dtype=torch.int64, device=px.device)
     steps = torch.arange(chunk, device=px.device)
     cap, m = ids.shape[0], m2d.shape[0]
     for c0 in range(0, int((hi_eff - lo).max()), chunk):
@@ -116,9 +139,10 @@ def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, chunk=64):
             pairs += live.sum()
             t_after = t * (1.0 - alphas[:, j])
             stop = live & (t_after < T_EPS)
+            blended += (live & ~stop & (alphas[:, j] > 0)).sum()
             t = torch.where(live & ~stop, t_after, t)
             done = done | stop
-    return int(pairs)
+    return int(pairs), int(blended)
 
 
 def profile(fn, calls, top=14):
@@ -151,6 +175,57 @@ def profile(fn, calls, top=14):
         print(f"#   {ms:8.4f} ms  {n:5.1f}x  {key[:90]}")
 
 
+def host_walls(fn, calls):
+    """Host-clock ms of ``calls`` calls, each ending in a synchronize,
+    after 2 warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def stamp(t_start, what):
+    print(f"# [{time.perf_counter() - t_start:6.1f} s] {what}")
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| over one output."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def train_phase(kernels_of, tr, steps):
+    """Run ``steps`` train_steps from ``tr.state``, zeroing every launch
+    counter just before each step and reading it just after. Returns the
+    final state, the losses and the launches summed over the steps."""
+    state, losses = tr.state, []
+    totals = {name: 0 for name in kernels_of}
+    for i in range(steps):
+        for wrapper in kernels_of.values():
+            wrapper.launches = 0
+        state, m = tr.step(state)
+        torch.cuda.synchronize()
+        n = {name: w.launches for name, w in kernels_of.items()}
+        loss = float(m["loss"])
+        print(f"# train_step {i + 1}: loss {loss:.6f} l1 "
+              f"{[round(float(x), 6) for x in m['l1']]} ssim "
+              f"{[round(float(x), 6) for x in m['ssim']]} launches {n}")
+        require(all(v > 0 for v in n.values()),
+                f"step {i + 1}: a kernel of the training path did not "
+                f"launch: {n}")
+        require(bool(torch.isfinite(m["loss"])), f"step {i + 1}: loss {loss}")
+        losses.append(loss)
+        for name in totals:
+            totals[name] += n[name]
+    return state, losses, totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -158,23 +233,28 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     from grendel_tpu_torch import kernels
-    from grendel_tpu_torch.cameras import batch_camera_arrays, camera_arrays
+    from grendel_tpu_torch.cameras import batch_camera_arrays
     from grendel_tpu_torch.convert import params_from_numpy
     from grendel_tpu_torch.engine import render as R
     from grendel_tpu_torch.engine.gaussian_io import load_ply, save_ply
-    from grendel_tpu_torch.models.gaussian_model import activated
+    from grendel_tpu_torch.engine.loss import batch_loss
+    from grendel_tpu_torch.models.gaussian_model import (GaussianParams,
+                                                         activated)
+    from grendel_tpu_torch.models.optimizer import adam_step
     from grendel_tpu_torch.ops import isect as I
     from grendel_tpu_torch.ops import rasterize_cuda, scan_cuda
     from grendel_tpu_torch.ops.projection import (ProjectedSplats,
-                                                  project_gaussians,
                                                   project_gaussians_batched)
-    from grendel_tpu_torch.ops.rasterize_torch import rasterize_slots
-    from grendel_tpu_torch.testing import (garden_scene, make_test_camera,
+    from grendel_tpu_torch.ops.rasterize_torch import (rasterize_slots,
+                                                       rasterize_slots_bwd)
+    from grendel_tpu_torch.testing import (flagship_inputs, flagship_training,
+                                           garden_render_config, garden_scene,
+                                           garden_training, make_test_camera,
                                            params_fields, random_gaussians)
-    from grendel_tpu_torch.utils.hbm import mantissa_round_cap
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -182,6 +262,9 @@ def main():
     print(f"# python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     tag = f"[{card}]"
+    k1 = rasterize_cuda.rasterize_slots_fwd
+    k2 = rasterize_cuda.rasterize_slots_vjp
+    k3 = scan_cuda.cumsum_i32_multi
 
     # --- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -207,19 +290,11 @@ def main():
         "PLY round trip changed the model")
     h, w, sh = scene.img_h, scene.img_w, scene.sh_degree
     act = activated(params)
-    ca0 = camera_arrays(scene.cameras[0], dev)
-    s0 = project_gaussians(act.means3d, act.scales, act.quats, act.opacities,
-                           act.sh, alive, ca0.viewmat, ca0.full_proj,
-                           ca0.campos, ca0.tanfov, h, w, sh)
-    tiles_x, tiles_y = -(-w // TILE_W), -(-h // TILE_H)
-    probe = I.isect_tiles(s0.means2d, s0.radii, s0.depths, TILE_W, TILE_H,
-                          tiles_x, tiles_y, 1 << 23, opacities=s0.opacities)
-    n_isect, n_kept = int(probe.num_isects), int(probe.num_kept)
-    isect_cap = mantissa_round_cap(1.15 * n_isect)
-    blend_cap = min(mantissa_round_cap(1.15 * n_kept), isect_cap)
-    cfg = R.RenderConfig(img_h=h, img_w=w, tile_w=TILE_W, tile_h=TILE_H,
-                         isect_capacity=isect_cap, blend_capacity=blend_cap,
-                         max_per_tile=MAX_PER_TILE, backend="cuda")
+    cfg, n_isect, n_kept = garden_render_config(scene)
+    require((cfg.tile_w, cfg.tile_h, cfg.max_per_tile)
+            == (TILE_W, TILE_H, MAX_PER_TILE), "garden tile geometry")
+    tiles_x, tiles_y = cfg.tiles_x, cfg.tiles_y
+    isect_cap, blend_cap = cfg.isect_capacity, cfg.blend_cap
     print(f"# garden: {int(alive.sum())} live / {alive.shape[0]}, {w}x{h}, "
           f"bsz {BSZ}, tiles {TILE_W}x{TILE_H}: {n_isect} isects/cam "
           f"({n_kept} post-cull), capacity {isect_cap}/cam, blend "
@@ -243,6 +318,8 @@ def main():
                 None, px0, py0, TILE_W, TILE_H, MAX_PER_TILE)
     blend_kw = dict(tile_lo=tlo, tile_hi=thi)
 
+    stamp(t_start, "inputs built")
+
     # --- 3. K3 against its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     scan_shapes = [(1, n_univ), (4, BSZ * isect_cap)]   # per render_batch
@@ -251,7 +328,7 @@ def main():
                                (1, 1), (3, 4097), (2, 99_999), (8, 12_305)]:
         xs = [torch.randint(-5000, 5000, (m,), generator=gen, device=dev,
                             dtype=torch.int32) for _ in range(c)]
-        got = scan_cuda.cumsum_i32_multi(xs)
+        got = k3(xs)
         want = scan_cuda.cumsum_i32_multi_plain(xs)
         torch.cuda.synchronize()
         for g, wnt in zip(got, want):
@@ -260,8 +337,8 @@ def main():
             k3_err = max(k3_err, int((g.long() - wnt.long()).abs().max()))
     print(f"# K3 scan: bit-equal to plain at {len(scan_shapes) + 7} shapes")
 
-    # --- 4. K1 against its plain version --------------------------------
-    col_k, t_k = rasterize_cuda.rasterize_slots_fwd(*blend_in, **blend_kw)
+    # --- 4. K1 and K2 against their plain versions ------------------------
+    col_k, t_k = k1(*blend_in, **blend_kw)
     col_p, t_p = rasterize_slots(*blend_in, **blend_kw)
     torch.cuda.synchronize()
     k1_err = max(float((col_k - col_p).abs().max()),
@@ -272,17 +349,34 @@ def main():
           f"{t_k.shape[0]} slots x {t_k.shape[1]} px (tol {K1_TOL})")
     require(k1_err <= K1_TOL, f"K1 differs from its plain version: {k1_err}")
 
-    # --- 5. the main path ------------------------------------------------
+    bwd_kw = dict(blend_kw, c_total=col_k, final_t=t_k,
+                  g=torch.randn(col_k.shape, generator=gen, device=dev),
+                  g_t=torch.randn(t_k.shape, generator=gen, device=dev))
+    d_k = k2(*blend_in, **bwd_kw)
+    d_p = rasterize_slots_bwd(*blend_in, **bwd_kw)
+    torch.cuda.synchronize()
+    names = ("d_means2d", "d_conics", "d_colors", "d_opacities")
+    require(all(bool(torch.isfinite(x).all()) for x in d_k),
+            "K2 output not finite")
+    k2_rel = {n: rel_err(a, b) for n, a, b in zip(names, d_k, d_p)}
+    k2_err = max(float((a - b).abs().max()) for a, b in zip(d_k, d_p))
+    print(f"# K2 backward blend: max |K2 - plain| / max |plain| "
+          f"{ {n: f'{e:.3e}' for n, e in k2_rel.items()} }, max abs err "
+          f"{k2_err:.3e} (tol {K2_REL_TOL} relative)")
+    require(max(k2_rel.values()) <= K2_REL_TOL,
+            f"K2 differs from its plain version: {k2_rel}")
+
+    stamp(t_start, "K1 and K2 checked")
+
+    # --- 5. the render path ----------------------------------------------
     bg = torch.tensor([0.0, 0.0, 0.0], device=dev)
-    scan_cuda.cumsum_i32_multi.launches = 0
-    rasterize_cuda.rasterize_slots_fwd.launches = 0
+    k3.launches = k1.launches = k2.launches = 0
     imgs, _, aux = R.render_batch(params, alive, cams, sh, cfg, bg=bg)
     torch.cuda.synchronize()
-    launches = {"K1": rasterize_cuda.rasterize_slots_fwd.launches,
-                "K3": scan_cuda.cumsum_i32_multi.launches}
-    print(f"# main path launches: {launches}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path did not launch: {launches}")
+    render_launches = {"K1": k1.launches, "K3": k3.launches}
+    print(f"# render path launches: {render_launches}")
+    require(all(n > 0 for n in render_launches.values()),
+            f"a kernel of the render path did not launch: {render_launches}")
     require(imgs.shape == (BSZ, 3, h, w), f"image shape {tuple(imgs.shape)}")
     require(bool(torch.isfinite(imgs).all()), "non-finite image")
     require(int(aux.num_isects[0]) <= BSZ * isect_cap,
@@ -291,7 +385,7 @@ def main():
     print(f"# render_batch image mean {mean:.4f}, final_t mean "
           f"{float(aux.final_t.mean()):.4f}")
     require(0.02 < mean < 0.98, f"image mean {mean} outside (0.02, 0.98)")
-    # the main path's blend is the kernel run checked in phase 4
+    # the render path's blend is the kernel run checked in phase 4
     require(torch.equal(imgs[0], R.slots_to_images(
         col_k + t_k[..., None] * bg, t_k, BSZ, tiles_y, tiles_x, TILE_H,
         TILE_W, h, w)[0][0]), "render_batch image differs from phase 4")
@@ -312,48 +406,141 @@ def main():
     print(f"# small scene, card vs CPU reference: max abs err {small_err:.3e}")
     require(small_err <= 1e-4, f"card render differs from CPU: {small_err}")
 
-    # --- 6. timings --------------------------------------------------------
-    for _ in range(2):
-        R.render_batch(params, alive, cams, sh, cfg, bg=bg)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        R.render_batch(params, alive, cams, sh, cfg, bg=bg)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    stamp(t_start, "render path checked")
+
+    # --- 6. the training path (the main path) ------------------------------
+    tr = garden_training(seed=0, device=dev)
+    require(tr.cfg == cfg, "garden_training sized another render config")
+    kernels_of = {"K1": k1, "K2": k2, "K3": k3}
+    state, losses, launches = train_phase(kernels_of, tr, TRAIN_STEPS)
+    print(f"# training path, {TRAIN_STEPS} steps: launches {launches}, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    require(losses[-1] < losses[0],
+            f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    require(all(bool(torch.isfinite(p).all()) for p in state.params),
+            "non-finite parameter after training")
+    require(int(state.iteration) == BSZ * TRAIN_STEPS
+            and int(state.adam.count) == TRAIN_STEPS,
+            f"iteration {int(state.iteration)}, Adam count "
+            f"{int(state.adam.count)}")
+    # one small step on the card against the same step on the CPU
+    inputs = flagship_inputs(seed=0)
+    on_card, on_cpu = (flagship_training(inputs, d) for d in (dev, "cpu"))
+    s_card, m_card = on_card.step(on_card.state)
+    s_cpu, m_cpu = on_cpu.step(on_cpu.state)
+    loss_rel = abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1.0)
+    # one step from a fresh state leaves moments far below 1e-4, so each
+    # leaf is also held scaled by its largest value on the CPU: that holds
+    # the card's whole backward (K2, projection, SH, SSIM) to the CPU's
+    mom_err = 0.0
+    for name, mc, mp in zip(
+            [f"mu.{k}" for k in s_cpu.params._fields]
+            + [f"nu.{k}" for k in s_cpu.params._fields],
+            s_card.adam.mu + s_card.adam.nu, s_cpu.adam.mu + s_cpu.adam.nu):
+        mc = mc.cpu()
+        require(torch.allclose(mc, mp, atol=1e-4, rtol=1e-3),
+                f"Adam moment {name} on the card differs from the CPU")
+        require(float(mp.abs().max()) > 0, f"Adam moment {name} is zero")
+        err = rel_err(mc, mp)
+        require(err <= MOMENT_REL_TOL,
+                f"Adam moment {name}: card vs CPU err / max {err:.3e} > "
+                f"{MOMENT_REL_TOL}")
+        mom_err = max(mom_err, err)
+    print(f"# small train_step, card vs CPU: loss relative err "
+          f"{loss_rel:.3e}, Adam moments max err / max {mom_err:.3e} "
+          f"(limit {MOMENT_REL_TOL})")
+    require(loss_rel <= 1e-5, f"card loss differs from CPU: {loss_rel}")
+
+    stamp(t_start, "training path checked")
+
+    # --- 7. timings --------------------------------------------------------
+    walls = host_walls(lambda: R.render_batch(params, alive, cams, sh, cfg,
+                                              bg=bg), 20)
     render_ms = statistics.median(walls)
     print(f"# render_batch bsz {BSZ} {w}x{h}: median {render_ms:.3f} ms "
           f"(min {min(walls):.3f}, max {max(walls):.3f}) over 20 calls "
           f"= {BSZ * 1e3 / render_ms:.1f} images/s {tag}")
-
     profile(lambda: R.render_batch(params, alive, cams, sh, cfg, bg=bg), 5)
 
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = tr.step(holder[0])
+
+    walls = host_walls(one_step, 20)
+    step_ms = statistics.median(walls)
+    print(f"# train_step bsz {BSZ} {w}x{h}: median {step_ms:.3f} ms "
+          f"(min {min(walls):.3f}, max {max(walls):.3f}) over 20 calls "
+          f"= {BSZ * 1e3 / step_ms:.1f} images/s {tag}")
+    print("# train_step profile:")
+    profile(one_step, 5)
+    # the step's layers alone, host clock: the loss (forward and backward
+    # on a fixed image) and the Adam update; the render's forward and
+    # backward, the densify statistics and autograd take the rest
+    img = torch.rand((BSZ, 3, h, w), device=dev, generator=gen,
+                     requires_grad=True)
+    gt = tr.gt_u8.to(torch.float32) / 255.0
+
+    def loss_fwd_bwd():
+        loss, _ = batch_loss(img, gt, tr.lambda_dssim)
+        torch.autograd.grad(loss, [img])
+
+    st = holder[0]
+    zero_grads = GaussianParams(*(torch.zeros_like(p) for p in st.params))
+    loss_ms = statistics.median(host_walls(loss_fwd_bwd, 20))
+    adam_ms = statistics.median(host_walls(
+        lambda: adam_step(st.params, zero_grads, st.adam, tr.lrs,
+                          tr.xyz_sched(st.iteration), st.alive), 20))
+    print(f"# train_step layers, host clock median of 20: loss fwd+bwd "
+          f"{loss_ms:.3f} ms, Adam {adam_ms:.3f} ms, render fwd+bwd and "
+          f"the rest {step_ms - loss_ms - adam_ms:.3f} ms {tag}")
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    torch.cuda.synchronize()
+    print(f"# train_step peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     timer = Timer()
-    k1_ms = timer.ms(lambda: rasterize_cuda.rasterize_slots_fwd(
-        *blend_in, **blend_kw), 20)
+    k1_ms = timer.ms(lambda: k1(*blend_in, **blend_kw), 20)
     k1_plain_ms = timer.ms(lambda: rasterize_slots(*blend_in, **blend_kw), 3)
-    pairs = walked_pairs(flat.means2d, flat.conics, flat.opacities, ids, tlo,
-                         thi, px0, py0)
+    pairs, blended = walked_pairs(flat.means2d, flat.conics, flat.opacities,
+                                  ids, tlo, thi, px0, py0)
     entries = int((torch.minimum(thi, tlo + MAX_PER_TILE) - tlo).sum())
     m = flat.means2d.shape[0]
-    k1_bytes = (m * 9 * 4 + ids.numel() * 4 + 4 * tlo.numel() * 4
-                + t_k.numel() * 4 * 4)
+    n_pix = t_k.numel()
+    splat_bytes = m * 9 * 4 + ids.numel() * 4 + 4 * tlo.numel() * 4
+    k1_bytes = splat_bytes + n_pix * 4 * 4
     k1_bytes_ms = 1e3 * k1_bytes / HBM_BYTES_PER_S
     k1_ops_ms = 1e3 * K1_OPS_PER_PAIR * pairs / FP32_OPS_PER_S
     k1_bound = max(k1_bytes_ms, k1_ops_ms)
     k1_bound_by = "operations" if k1_ops_ms >= k1_bytes_ms else "bytes"
     print(f"# K1: {entries} entries walked in spans, {pairs} (entry, pixel) "
-          f"pairs to stop, {k1_bytes} bytes; {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.2f} ms, bound {k1_bound:.4f} ms ({k1_bound_by}) {tag}")
+          f"pairs to stop, {blended} blended, {k1_bytes} bytes; {k1_ms:.4f} "
+          f"ms, plain {k1_plain_ms:.2f} ms, bound {k1_bound:.4f} ms "
+          f"({k1_bound_by}) {tag}")
 
-    k3 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    k2_ms = timer.ms(lambda: k2(*blend_in, **bwd_kw), 20)
+    k2_plain_ms = timer.ms(lambda: rasterize_slots_bwd(*blend_in, **bwd_kw),
+                           1)
+    # inputs: the splats, ids and spans, c_total, final_t and the two
+    # cotangents (8 floats per pixel); output: 9 floats per Gaussian
+    k2_bytes = splat_bytes + n_pix * 8 * 4 + m * 9 * 4
+    k2_bytes_ms = 1e3 * k2_bytes / HBM_BYTES_PER_S
+    k2_ops = K1_OPS_PER_PAIR * pairs + K2_OPS_PER_BLENDED * blended
+    k2_ops_ms = 1e3 * k2_ops / FP32_OPS_PER_S
+    k2_bound = max(k2_bytes_ms, k2_ops_ms)
+    k2_bound_by = "operations" if k2_ops_ms >= k2_bytes_ms else "bytes"
+    print(f"# K2: {k2_ops} operations, {k2_bytes} bytes; {k2_ms:.4f} ms, "
+          f"plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms "
+          f"({k2_bound_by}) {tag}")
+
+    k3_row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for c, m_len in scan_shapes:
         xs = [torch.randint(0, 64, (m_len,), generator=gen, device=dev,
                             dtype=torch.int32) for _ in range(c)]
         stacked = torch.stack(xs)
         row = {
-            "ms": timer.ms(lambda: scan_cuda.cumsum_i32_multi(xs), 50),
+            "ms": timer.ms(lambda: k3(xs), 50),
             "plain_ms": timer.ms(
                 lambda: scan_cuda.cumsum_i32_multi_plain(xs), 50),
             "library_ms": timer.ms(
@@ -363,9 +550,11 @@ def main():
         print(f"# K3 C={c} M={m_len}: {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, torch.cumsum {row['library_ms']:.4f}"
               f" ms, bound {row['bound_ms']:.4f} ms (bytes) {tag}")
-        for k in k3:
-            k3[k] += row[k]
+        for k in k3_row:
+            k3_row[k] += row[k]
+    stamp(t_start, "timings done")
 
+    # launches: the training path's counts over its TRAIN_STEPS steps
     kernels_line = {"kernels": [
         {"name": "rasterize_fwd", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/rasterize_fwd.cu",
@@ -373,15 +562,21 @@ def main():
          "launches": launches["K1"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None},
-        # K3's numbers are per render_batch: the sum over its launches at
-        # the main path's two shapes
+        # K3's times are per render_batch (a train_step builds its tile
+        # lists once, at the same two shapes): the sum over both launches
         {"name": "scan_i32", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/scan.cu",
          "replaces": "grendel_tpu/ops/scan_pallas.py:65",
          "launches": launches["K3"], "max_abs_err": k3_err,
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": "bytes",
-         "library_ms": k3["library_ms"]},
+         "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
+         "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
+         "library_ms": k3_row["library_ms"]},
+        {"name": "rasterize_bwd", "route": "cuda",
+         "source": "grendel_tpu_torch/csrc/rasterize_bwd.cu",
+         "replaces": "grendel_tpu/ops/rasterize_pallas.py:262",
+         "launches": launches["K2"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_bound_by, "library_ms": None},
     ]}
     print(card)
     print(json.dumps(kernels_line))

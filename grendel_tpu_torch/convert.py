@@ -1,10 +1,14 @@
-"""Carry model parameters from numpy (e.g. the JAX package's) into the port.
+"""Carry model and training state from numpy (e.g. the JAX package's) into
+the port.
 
 :func:`params_from_numpy` takes the six ``GaussianParams`` fields as numpy
 arrays, named as in both packages, so a model held by ``grendel_tpu``
 (``{k: np.asarray(v) for k, v in params._asdict().items()}``) renders in
-the port on the same values. A model on disk crosses through its PLY
-instead (engine/gaussian_io.py).
+the port on the same values. :func:`train_state_from_numpy` carries a whole
+training state the same way (parameters, Adam moments and count, densify
+statistics, iteration), so both packages can continue one mid-training
+state. A model on disk crosses through its PLY instead
+(engine/gaussian_io.py).
 """
 
 from __future__ import annotations
@@ -23,12 +27,48 @@ def params_from_numpy(fields: dict, alive, device=DEFAULT_DEVICE):
     if missing:
         raise ValueError(f"missing GaussianParams fields: {sorted(missing)}")
     params = GaussianParams(**{
-        k: torch.as_tensor(np.asarray(fields[k], np.float32), device=dev)
+        k: torch.tensor(np.asarray(fields[k], np.float32), device=dev)
         for k in GaussianParams._fields})
     n = params.means3d.shape[0]
     if any(p.shape[0] != n for p in params):
         raise ValueError("all fields must share the capacity axis")
-    alive_t = torch.as_tensor(np.asarray(alive, bool), device=dev)
+    alive_t = torch.tensor(np.asarray(alive, bool), device=dev)
     if alive_t.shape != (n,):
         raise ValueError(f"alive must be ({n},), got {tuple(alive_t.shape)}")
     return params, alive_t
+
+
+def train_state_from_numpy(params: dict, alive, adam_mu: dict, adam_nu: dict,
+                           adam_count, stats: dict, iteration,
+                           device=DEFAULT_DEVICE):
+    """The port's ``TrainState`` from the leaves of a ``TrainState`` as
+    numpy: ``params``, ``adam_mu`` and ``adam_nu`` hold the six
+    ``GaussianParams`` fields, ``stats`` the three ``DensifyStats`` fields
+    (``grad_accum``, ``denom``, ``max_radii``); ``adam_count`` and
+    ``iteration`` are int scalars."""
+    from .engine.train import TrainState
+    from .models.densify import DensifyStats
+    from .models.optimizer import AdamState
+
+    dev = resolve_device(device)
+    p, alive_t = params_from_numpy(params, alive, dev)
+    mu, _ = params_from_numpy(adam_mu, alive, dev)
+    nu, _ = params_from_numpy(adam_nu, alive, dev)
+    for name, moment in (("adam_mu", mu), ("adam_nu", nu)):
+        if any(a.shape != b.shape for a, b in zip(moment, p)):
+            raise ValueError(f"{name} must have the shapes of params")
+    missing = set(DensifyStats._fields) - set(stats)
+    if missing:
+        raise ValueError(f"missing DensifyStats fields: {sorted(missing)}")
+    st = DensifyStats(**{
+        k: torch.tensor(np.asarray(stats[k], np.float32), device=dev)
+        for k in DensifyStats._fields})
+    if any(x.shape != alive_t.shape for x in st):
+        raise ValueError("densify stats must be (N,)")
+
+    def i32(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=dev)
+
+    return TrainState(params=p, alive=alive_t,
+                      adam=AdamState(mu=mu, nu=nu, count=i32(adam_count)),
+                      stats=st, iteration=i32(iteration))

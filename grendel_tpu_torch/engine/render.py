@@ -15,7 +15,11 @@ tile front to back.
   * ``"torch"``: the plain PyTorch rasterizer, one camera at a time. It is
     a reference for the CPU and refuses CUDA tensors.
 
-Only the forward is ported: the blend has no backward yet.
+Both are differentiable in the parameters: the ``"cuda"`` blend through
+its autograd Function (backward kernel K2 on the card), the ``"torch"`` one
+by autograd through the plain walk (small scenes only). The tile lists are
+integer decisions and are built from detached tensors, so the autograd
+graph holds only the projection and the blend inputs.
 """
 
 from __future__ import annotations
@@ -106,10 +110,10 @@ def render_splats(splats: ProjectedSplats, cfg: RenderConfig,
     _check_backend(cfg, dev)
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
-    isect = isect_tiles(splats.means2d, splats.radii, splats.depths,
-                        cfg.tile_w, cfg.tile_h, cfg.tiles_x, cfg.tiles_y,
-                        capacity=cfg.isect_capacity,
-                        opacities=splats.opacities)
+    isect = isect_tiles(splats.means2d.detach(), splats.radii,
+                        splats.depths.detach(), cfg.tile_w, cfg.tile_h,
+                        cfg.tiles_x, cfg.tiles_y, capacity=cfg.isect_capacity,
+                        opacities=splats.opacities.detach())
     ids, toff = isect.gauss_ids, isect.tile_offsets
     if cfg.blend_cap < cfg.isect_capacity:
         ids, toff = compact_entries_flat(ids, toff, cfg.blend_cap)
@@ -149,9 +153,9 @@ def _render_batch_rowslots(splats: ProjectedSplats, cfg: RenderConfig, bg):
                              for x in splats))
     numt = cfg.num_tiles
     isect = isect_tile_rows_blocked(
-        flat.means2d, flat.radii, flat.depths, b,
+        flat.means2d.detach(), flat.radii, flat.depths.detach(), b,
         cfg.tile_w, cfg.tile_h, cfg.tiles_x, cfg.tiles_y,
-        capacity=b * cfg.isect_capacity, opacities=flat.opacities)
+        capacity=b * cfg.isect_capacity, opacities=flat.opacities.detach())
     ids, tlo, thi = isect.gauss_ids, isect.tile_lo, isect.tile_hi
     if cfg.blend_cap < cfg.isect_capacity:
         ids, tlo, thi = compact_entries_blocked(
@@ -170,11 +174,18 @@ def _render_batch_rowslots(splats: ProjectedSplats, cfg: RenderConfig, bg):
 
 def render_batch(params: GaussianParams, alive: torch.Tensor,
                  cams: CameraArrays, sh_degree: int, cfg: RenderConfig,
-                 bg: Optional[torch.Tensor] = None
+                 bg: Optional[torch.Tensor] = None,
+                 means2d_tap: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, ProjectedSplats, RenderAux]:
     """Render a batch of cameras (``cams`` with a leading (B,) axis).
 
-    Returns (images (B,3,H,W), batched splats (B,N,...), batched aux)."""
+    ``means2d_tap`` ((B, N, 2) zeros) is added to the projected means after
+    projection and before the tile lists, so a caller that differentiates
+    with respect to it reads d(loss)/d(means2d) per camera, which the
+    densify statistics need (the reference's ``means2D.retain_grad()``).
+
+    Returns (images (B,3,H,W), batched splats (B,N,...), batched aux); the
+    splats' means include the tap."""
     dev = params.means3d.device
     _check_backend(cfg, dev)
     if bg is None:
@@ -183,6 +194,8 @@ def render_batch(params: GaussianParams, alive: torch.Tensor,
     splats = project_gaussians_batched(
         act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
         cams, cfg.img_h, cfg.img_w, sh_degree)
+    if means2d_tap is not None:
+        splats = splats._replace(means2d=splats.means2d + means2d_tap)
     if cfg.backend == "cuda":
         img, aux = _render_batch_rowslots(splats, cfg, bg)
         return img, splats, aux

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scan", "rasterize_fwd")
+SOURCES = ("scan", "rasterize_fwd", "rasterize_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +48,16 @@ SIGNATURES = {
             _ptr, _ptr, _ptr, _ptr,          # tile_lo tile_hi px0 py0
             _c_int, _c_int, _c_int, _c_int,  # n_slots tile_w tile_h mpt
             _ptr, _ptr, _ptr,                # out_colors out_t stream
+        ]),
+    },
+    "rasterize_bwd": {
+        "gts_rasterize_bwd": (_c_int, [
+            _ptr, _ptr, _ptr, _ptr,          # means2d conics colors opacities
+            _ptr, _c_i64, ctypes.c_int32,    # gauss_ids n_entries n_gauss
+            _ptr, _ptr, _ptr, _ptr,          # tile_lo tile_hi px0 py0
+            _c_int, _c_int, _c_int, _c_int,  # n_slots tile_w tile_h mpt
+            _ptr, _ptr, _ptr, _ptr,          # c_total final_t g_colors g_t
+            _ptr, _ptr,                      # d_out stream
         ]),
     },
 }

@@ -8,13 +8,16 @@ Counterpart of grendel_tpu/ops/rasterize_jax.py, with the same contract:
     Spans are flat (``tile_offsets``, (T+1,)) or blocked
     (``tile_lo``/``tile_hi``, (T,) each). Entries past ``max_per_tile`` in
     a span are dropped, and ids outside [0, M) are the sentinel.
+  * :func:`rasterize_slots_bwd` is its vector-Jacobian product, written
+    out (no autograd): the plain version of kernel K2.
   * :func:`rasterize_tiles` renders one camera's full tile grid to
     (3, H, W).
 
 The walk is vectorised over slots and pixels and runs entry by entry in
 the same order of f32 operations as csrc/rasterize_fwd.cu, so on the card
-the two agree up to the few ulps of ``exp``. It is differentiable by
-autograd.
+the two agree up to the few ulps of ``exp``. The forward is differentiable
+by autograd, which keeps (T, K, P) tensors for every chunk of entries: use
+that for small scenes only, and :func:`rasterize_slots_bwd` otherwise.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .blend import blend_weights, splat_alpha
+from .blend import ALPHA_CLAMP, ALPHA_MIN, T_EPS, blend_weights, splat_alpha
 
 
 class RenderAux(NamedTuple):
@@ -51,6 +54,17 @@ def slot_pixels(slot_px0, slot_py0, tile_w: int, tile_h: int):
     return px, py
 
 
+def _chunk_ids(gauss_ids, lo, hi_eff, c0: int, steps, m: int):
+    """Gaussian ids (T, K) of span entries [lo + c0, lo + c0 + K) and their
+    validity: inside the capped span and not the sentinel. Invalid entries
+    read Gaussian 0."""
+    k = lo[:, None] + c0 + steps                              # (T, K)
+    valid = k < hi_eff[:, None]
+    ids = gauss_ids[k.clamp(0, gauss_ids.shape[0] - 1)].long()
+    valid = valid & (ids >= 0) & (ids < m)
+    return torch.where(valid, ids, torch.zeros_like(ids)), valid
+
+
 def rasterize_slots(
     means2d: torch.Tensor,       # (M, 2)
     conics: torch.Tensor,        # (M, 3)
@@ -76,7 +90,6 @@ def rasterize_slots(
     t_slots = lo.shape[0]
     p = tile_w * tile_h
     m = means2d.shape[0]
-    cap = gauss_ids.shape[0]
     px, py = slot_pixels(slot_px0, slot_py0, tile_w, tile_h)
 
     t = torch.ones(t_slots, p, dtype=torch.float32, device=dev)
@@ -85,11 +98,7 @@ def rasterize_slots(
     n_steps = int((hi_eff - lo).clamp(min=0).max()) if t_slots else 0
     steps = torch.arange(chunk, device=dev)
     for c0 in range(0, n_steps, chunk):
-        k = lo[:, None] + c0 + steps                          # (T, K)
-        valid = k < hi_eff[:, None]
-        ids = gauss_ids[k.clamp(0, cap - 1)].long()
-        valid = valid & (ids >= 0) & (ids < m)
-        ids = torch.where(valid, ids, torch.zeros_like(ids))
+        ids, valid = _chunk_ids(gauss_ids, lo, hi_eff, c0, steps, m)
         xy = means2d[ids]                                     # (T, K, 2)
         o = torch.where(valid, opacities[ids], torch.zeros_like(xy[..., 0]))
         dx = px[:, None, :] - xy[..., 0:1]                    # (T, K, P)
@@ -102,6 +111,102 @@ def rasterize_slots(
         if bool(done.all()):
             break
     return color, t
+
+
+def rasterize_slots_bwd(
+    means2d, conics, colors, opacities, gauss_ids, tile_offsets=None,
+    slot_px0=None, slot_py0=None, tile_w: int = 16, tile_h: int = 16,
+    max_per_tile: int = 1024, chunk: int = 64, *, tile_lo=None,
+    tile_hi=None, c_total, final_t, g, g_t,
+):
+    """Vector-Jacobian product of :func:`rasterize_slots`, written out.
+
+    ``c_total`` (T, P, 3) and ``final_t`` (T, P) are the forward's outputs
+    (colors before any background); ``g`` (T, P, 3) and ``g_t`` (T, P) the
+    cotangents of those outputs. Returns (d_means2d (M, 2), d_conics (M, 3),
+    d_colors (M, 3), d_opacities (M,)), summed over entries per Gaussian;
+    sentinel entries contribute nothing.
+
+    The walk repeats the forward's f32 operations entry by entry, so each
+    pixel stops where the forward stopped, and carries the prefix
+    s_i = sum_{j<=i} w_j (g . c_j) to differentiate through later entries
+    (grendel_tpu/ops/rasterize_pallas.py:335-384):
+
+        dalpha_i = T_i (g . c_i) - (g . c_total - s_i + T_fin g_t) / (1 - alpha_i)
+
+    zero for entries the forward did not blend and where alpha was clamped
+    (o exp(power) >= 0.99). This is the plain version of kernel K2
+    (csrc/rasterize_bwd.cu); it uses no autograd.
+    """
+    lo, hi = tile_spans(tile_offsets, tile_lo, tile_hi)
+    lo, hi = lo.long(), hi.long()
+    hi_eff = torch.minimum(hi, lo + max_per_tile)
+    dev = means2d.device
+    t_slots = lo.shape[0]
+    p = tile_w * tile_h
+    m = means2d.shape[0]
+    px, py = slot_pixels(slot_px0, slot_py0, tile_w, tile_h)
+    g_r, g_g, g_b = g[..., 0], g[..., 1], g[..., 2]            # (T, P)
+    ctg = c_total[..., 0] * g_r + c_total[..., 1] * g_g + c_total[..., 2] * g_b
+    gtt = g_t * final_t
+
+    t = torch.ones(t_slots, p, dtype=torch.float32, device=dev)
+    s = torch.zeros(t_slots, p, dtype=torch.float32, device=dev)
+    done = torch.zeros(t_slots, p, dtype=torch.bool, device=dev)
+    zero = torch.zeros_like(t)
+    # row m absorbs invalid entries
+    d_all = torch.zeros(m + 1, 9, dtype=torch.float32, device=dev)
+    n_steps = int((hi_eff - lo).clamp(min=0).max()) if t_slots else 0
+    steps = torch.arange(chunk, device=dev)
+    for c0 in range(0, n_steps, chunk):
+        ids, valid = _chunk_ids(gauss_ids, lo, hi_eff, c0, steps, m)
+        xy = means2d[ids]                                     # (T, K, 2)
+        con = conics[ids]                                     # (T, K, 3)
+        rgb = colors[ids]                                     # (T, K, 3)
+        o = torch.where(valid, opacities[ids], torch.zeros_like(xy[..., 0]))
+        dx = px[:, None, :] - xy[..., 0:1]                    # (T, K, P)
+        dy = py[:, None, :] - xy[..., 1:2]
+        ca, cb, cc = con[..., 0:1], con[..., 1:2], con[..., 2:3]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        g_exp = torch.exp(power)
+        raw = o[..., None] * g_exp
+        alpha = raw.clamp(max=ALPHA_CLAMP)
+        alpha = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN), alpha,
+                            torch.zeros_like(alpha))
+        unclamped = raw < ALPHA_CLAMP
+        ws, das = [], []
+        for j in range(alpha.shape[1]):
+            a = alpha[:, j]
+            gc = (rgb[:, j, None, 0] * g_r + rgb[:, j, None, 1] * g_g
+                  + rgb[:, j, None, 2] * g_b)
+            t_after = t * (1.0 - a)
+            done = done | (t_after < T_EPS)
+            blended = ~done & (a > 0.0)
+            w = torch.where(blended, a * t, zero)
+            s = s + w * gc
+            da = t * gc - (ctg - s + gtt) / (1.0 - a)
+            das.append(torch.where(blended & unclamped[:, j], da, zero))
+            ws.append(w)
+            t = torch.where(done, t, t_after)
+        w, da = torch.stack(ws, 1), torch.stack(das, 1)       # (T, K, P)
+        dp = da * alpha
+        per_entry = torch.stack([
+            (dp * (ca * dx + cb * dy)).sum(-1),
+            (dp * (cc * dy + cb * dx)).sum(-1),
+            (dp * (-0.5 * dx * dx)).sum(-1),
+            (dp * (-(dx * dy))).sum(-1),
+            (dp * (-0.5 * dy * dy)).sum(-1),
+            (w * g_r[:, None, :]).sum(-1),
+            (w * g_g[:, None, :]).sum(-1),
+            (w * g_b[:, None, :]).sum(-1),
+            (da * g_exp).sum(-1),
+        ], -1)                                                # (T, K, 9)
+        seg = torch.where(valid, ids, torch.full_like(ids, m))
+        d_all.index_add_(0, seg.reshape(-1), per_entry.reshape(-1, 9))
+        if bool(done.all()):
+            break
+    d_all = d_all[:m]
+    return d_all[:, 0:2], d_all[:, 2:5], d_all[:, 5:8], d_all[:, 8]
 
 
 def slots_to_images(colors: torch.Tensor, t_final: torch.Tensor, n_cams: int,

@@ -82,6 +82,49 @@ def test_project_gaussians_matches_jax():
     assert np.isinf(t.depths.numpy()[:60]).all()
 
 
+def test_project_gaussians_vjp_matches_jax():
+    """The autograd VJP of project_gaussians against jax.vjp, for every
+    float input (the five Gaussian inputs and the four camera arrays), with
+    random cotangents on every float output. Tolerance: rtol = atol = 1e-5
+    after scaling each gradient column by its largest value."""
+    means, scales, quats, opac, sh, alive = _scene()
+    cam = make_test_camera(W, H, dist=4.0)
+    tc, jc = camera_arrays(cam, device="cpu"), j_cam(cam)
+    gauss = (means, scales, quats, opac, sh)
+    cam_np = [np.asarray(x) for x in (jc.viewmat, jc.full_proj, jc.campos,
+                                      jc.tanfov)]
+    outs = ("means2d", "conics", "colors", "opacities", "depths")
+
+    def f_j(*xs):
+        s = j_project(*xs[:5], jnp.asarray(alive), *xs[5:], H, W, 3)
+        return tuple(getattr(s, k) for k in outs)
+
+    primals = [jnp.asarray(x) for x in gauss + tuple(cam_np)]
+    j_out, vjp = jax.vjp(f_j, *primals)
+    rng = np.random.default_rng(9)
+    cts = [rng.standard_normal(np.shape(o)).astype(np.float32)
+           for o in j_out]
+    g_j = vjp(tuple(jnp.asarray(c) for c in cts))
+
+    leaves = [torch.tensor(np.asarray(x), requires_grad=True)
+              for x in gauss + tuple(cam_np)]
+    s = project_gaussians(*leaves[:5], torch.tensor(alive), *leaves[5:],
+                          H, W, 3)
+    total = sum((getattr(s, k) * torch.tensor(c)).where(
+        torch.isfinite(getattr(s, k)), torch.zeros(())).sum()
+        for k, c in zip(outs, cts))
+    g_t = torch.autograd.grad(total, leaves)
+    names = ("means3d", "scales", "quats", "opacities", "sh", "viewmat",
+             "full_proj", "campos", "tanfov")
+    for name, a, b in zip(names, g_t, g_j):
+        a2 = a.numpy().reshape(a.shape[0], -1)
+        b2 = np.asarray(b).reshape(a2.shape)
+        scale = np.abs(b2).max(axis=0) + 1e-30
+        assert np.isfinite(a2).all(), name
+        np.testing.assert_allclose(a2 / scale, b2 / scale, rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 def test_project_gaussians_batched_matches_jax():
     means, scales, quats, opac, sh, alive = _scene(seed=5, n=200)
     cams = [make_test_camera(W, H, dist=4.0, angle=0.4 * i) for i in range(2)]

@@ -171,12 +171,3 @@ def test_tiles_match_dense_oracle():
     np.testing.assert_allclose(t_d.numpy(), np.asarray(t_j), atol=1e-5,
                                rtol=1e-5)
 
-
-def test_blend_wrapper_refuses_backward():
-    args = [torch.tensor(a) for a in _blend_args(*_scene(60, 3))]
-    m2d = args[0].clone().requires_grad_(True)
-    c, t = rasterize_slots_fwd(m2d, *args[1:], TILE, TILE, 256)
-    col_t, t_t = _run_port(_blend_args(*_scene(60, 3)), 256)
-    np.testing.assert_array_equal(c.detach().numpy(), col_t)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        (c.sum() + t.sum()).backward()

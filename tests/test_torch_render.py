@@ -91,6 +91,55 @@ def test_render_batch_matches_jax():
     _close(img_p, img_j)
 
 
+def test_render_batch_grads_match_across_backends_and_jax():
+    """Gradients of render_batch, in the parameters and in the means2d tap,
+    through the "cuda" backend on CPU tensors (the blend's autograd
+    Function with its written-out backward) and through the plain
+    per-camera "torch" backend (autograd through the walk), against
+    grendel_tpu's pallas_interpret backend. Tolerance: each leaf scaled by
+    its largest value, atol 1e-5 between the port's two backends (one
+    arithmetic, two orders of summation) and 2e-5 against JAX, the JAX
+    package's own bound between its backends."""
+    fields, alive = _flagship(seed=4)
+    cams = [testing.make_test_camera(W, H, angle=0.25 * i) for i in range(2)]
+    cfg_t, cfg_j = _cfgs(32, 16)
+    tp, ta = convert.params_from_numpy(fields, alive, "cpu")
+    tc = cameras.batch_camera_arrays(cams, "cpu")
+
+    def port_grads(backend):
+        leaves = [p.clone().requires_grad_(True) for p in tp]
+        tap = torch.zeros(2, 512, 2, requires_grad=True)
+        img, splats, _ = TR.render_batch(
+            gaussian_model.GaussianParams(*leaves), ta, tc, SH,
+            cfg_t._replace(backend=backend), bg=torch.tensor(BG),
+            means2d_tap=tap)
+        assert torch.equal(splats.means2d.detach(),
+                           TR.render_batch(tp, ta, tc, SH, cfg_t)[1].means2d)
+        return [g.numpy() for g in torch.autograd.grad(
+            (img * img).sum(), leaves + [tap])]
+
+    def jax_grads():
+        def loss(p, tap):
+            img, _, _ = JR.render_batch(p, ja, j_batch_cams(cams), SH, cfg_j,
+                                        bg=jnp.asarray(BG), means2d_tap=tap)
+            return jnp.sum(img * img)
+
+        jp, ja = _jax_params(fields, alive)
+        g_p, g_tap = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+            jp, jnp.zeros((2, 512, 2), jnp.float32))
+        return [np.asarray(g) for g in g_p] + [np.asarray(g_tap)]
+
+    cuda, plain, ref = port_grads("cuda"), port_grads("torch"), jax_grads()
+    names = gaussian_model.GaussianParams._fields + ("means2d_tap",)
+    for name, a, b, j in zip(names, cuda, plain, ref):
+        scale = np.abs(j).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(a / scale, b / scale, atol=1e-5, rtol=0,
+                                   err_msg=name)
+        np.testing.assert_allclose(a / scale, j / scale, atol=2e-5, rtol=0,
+                                   err_msg=name)
+
+
 def test_render_image_matches_jax():
     fields, alive = _flagship(seed=1)
     cam = testing.make_test_camera(W, H, angle=0.2)
@@ -198,6 +247,12 @@ def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch,
         lambda: cameras.camera_arrays(cam),
         lambda: gaussian_io.load_ply(str(tmp_path / "m.ply")),
         lambda: testing.garden_scene(0),
+        lambda: testing.garden_training(0),
+        lambda: testing.flagship_training(testing.flagship_inputs(0)),
+        lambda: convert.train_state_from_numpy(
+            fields, alive, fields, fields, 0,
+            dict(grad_accum=np.zeros(512), denom=np.zeros(512),
+                 max_radii=np.zeros(512)), 0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
