@@ -30,11 +30,28 @@ Phases, each of which fails the run:
      with Adam count 10; one train_step on the small flagship scene on the
      card must agree with the same step on the CPU (plain versions):
      loss to 1e-5 relative, Adam moments to atol 1e-4, rtol 1e-3;
-  7. timings: render_batch and train_step (host clock, median of 20 after
-     2 warm-ups), a profiler breakdown of each, and each kernel, its
-     plain version and the library call (CUDA events, with the L2 cache
-     flushed before each launch), beside the least time the card could
-     take.
+  7. the host training loop at full width, this slice's main path:
+     Trainer on the raytraced StructuredSyntheticScene (1280x832, 8 train
+     and 2 held-out views, 100,000 initial points), bsz 2 for 300
+     iterations with densify rounds at 200 and 300, an opacity reset at
+     200 and a checkpoint at 200; the launch counters must show K1, K2
+     and K3 in every step, and the run must densify with clones or splits
+     at least twice, grow the capacity, reset the opacity, keep every
+     parameter finite, raise the held-out PSNR, and resume from its
+     iteration-200 checkpoint for two more steps; K1, K2 and K3 are held
+     against their plain versions, at phases 3-4's tolerances, on the
+     inputs the loop's last step gave them (K2 on the loss's own
+     cotangents);
+  8. the DMA microbenchmark's kernels: K4 and K5 bit-equal to their plain
+     versions at an odd chunk count (row widths 16 and 128, 0 and 24
+     arithmetic rounds); then the microbenchmark itself at both row
+     widths, which checks its own default sizes the same way before it
+     times them, and whose launch counters must show K4 and K5;
+  9. timings: render_batch and train_step (host clock, median of 20 after
+     2 warm-ups, taken between phases 6 and 7; the step again after phase
+     8), a profiler breakdown of each, and each kernel, its plain version
+     and the library call (CUDA events, with the L2 cache flushed before
+     each launch), beside the least time the card could take.
 
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -70,6 +87,13 @@ K2_REL_TOL = 1e-4
 # much of its largest value (the rtol of the whole-step gradient bound)
 MOMENT_REL_TOL = 1e-3
 TRAIN_STEPS = 10
+# the host training loop: the structured scene and its schedule
+LOOP_SCENE = dict(width=1280, height=832, n_cams=10, llffhold=5,
+                  n_init_points=100_000, seed=0)
+LOOP_ITERS, LOOP_CHECKPOINT, LOOP_RESUME_STEPS = 300, 200, 2
+# the DMA microbenchmark: scripts/microbench_dma.py's defaults, and an odd
+# chunk count for the checks
+DMA_N, DMA_CAP, DMA_VPU_ITERS, DMA_ODD_CHUNKS = 262_144, 1_048_576, 24, 1001
 
 
 def require(ok, what):
@@ -200,6 +224,64 @@ def rel_err(got, want):
                                                  1e-30)
 
 
+def blend_check(what, blend_in, blend_kw, g, g_t):
+    """K1 and K2 against their plain versions on one set of tile lists: K1
+    within K1_TOL on colors and final_t; K2 on the cotangents ``g`` and
+    ``g_t`` finite and within K2_REL_TOL of each output's largest value.
+    Returns K1's outputs, K2's keyword arguments and each kernel's max abs
+    error."""
+    from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_fwd,
+                                                      rasterize_slots_vjp)
+    from grendel_tpu_torch.ops.rasterize_torch import (rasterize_slots,
+                                                       rasterize_slots_bwd)
+
+    col_k, t_k = rasterize_slots_fwd(*blend_in, **blend_kw)
+    col_p, t_p = rasterize_slots(*blend_in, **blend_kw)
+    torch.cuda.synchronize()
+    k1_err = max(float((col_k - col_p).abs().max()),
+                 float((t_k - t_p).abs().max()))
+    require(bool(torch.isfinite(col_k).all() and torch.isfinite(t_k).all()),
+            f"K1 output not finite ({what})")
+    print(f"# K1 blend ({what}): max abs err vs plain {k1_err:.3e} over "
+          f"{t_k.shape[0]} slots x {t_k.shape[1]} px (tol {K1_TOL})")
+    require(k1_err <= K1_TOL,
+            f"K1 differs from its plain version ({what}): {k1_err}")
+
+    bwd_kw = dict(blend_kw, c_total=col_k, final_t=t_k, g=g, g_t=g_t)
+    d_k = rasterize_slots_vjp(*blend_in, **bwd_kw)
+    d_p = rasterize_slots_bwd(*blend_in, **bwd_kw)
+    torch.cuda.synchronize()
+    names = ("d_means2d", "d_conics", "d_colors", "d_opacities")
+    require(all(bool(torch.isfinite(x).all()) for x in d_k),
+            f"K2 output not finite ({what})")
+    k2_rel = {n: rel_err(a, b) for n, a, b in zip(names, d_k, d_p)}
+    k2_err = max(float((a - b).abs().max()) for a, b in zip(d_k, d_p))
+    print(f"# K2 backward blend ({what}): max |K2 - plain| / max |plain| "
+          f"{ {n: f'{e:.3e}' for n, e in k2_rel.items()} }, max abs err "
+          f"{k2_err:.3e} (tol {K2_REL_TOL} relative)")
+    require(max(k2_rel.values()) <= K2_REL_TOL,
+            f"K2 differs from its plain version ({what}): {k2_rel}")
+    return col_k, t_k, bwd_kw, k1_err, k2_err
+
+
+def scan_check(what, calls):
+    """K3 bit-equal to its plain version on each list of int32 channels in
+    ``calls``; returns the max abs error (0)."""
+    from grendel_tpu_torch.ops import scan_cuda
+
+    err = 0
+    for xs in calls:
+        got = scan_cuda.cumsum_i32_multi(xs)
+        want = scan_cuda.cumsum_i32_multi_plain(xs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            require(g.dtype == torch.int32 and torch.equal(g, w),
+                    f"K3 differs from its plain version ({what}) at "
+                    f"C={len(xs)} M={xs[0].shape[0]}")
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
 def train_phase(kernels_of, tr, steps):
     """Run ``steps`` train_steps from ``tr.state``, zeroing every launch
     counter just before each step and reading it just after. Returns the
@@ -224,6 +306,295 @@ def train_phase(kernels_of, tr, steps):
         for name in totals:
             totals[name] += n[name]
     return state, losses, totals
+
+
+def loop_config(model_path, iterations=LOOP_ITERS):
+    """The loop's schedule: bsz 2, densify every 100 from 100 to
+    ``iterations``, an opacity reset every 200, a checkpoint at 200, no
+    eval, PLY save or checkpoint beyond that."""
+    from grendel_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig()
+    cfg.model.model_path = model_path
+    cfg.dist.bsz = BSZ
+    o = cfg.opt
+    o.iterations = iterations
+    o.densify_from_iter, o.densification_interval = 100, 100
+    o.densify_until_iter = iterations
+    o.opacity_reset_interval = 200
+    cfg.checkpoint_iterations = [LOOP_CHECKPOINT]
+    cfg.test_iterations, cfg.save_iterations = [], []
+    cfg.log_interval = 50
+    return cfg.finalize()
+
+
+def capture_kernel_inputs(calls):
+    """Within the ``with`` block, record what the training step hands K2
+    (its inputs, which are K1's, K1's outputs and the loss's cotangents)
+    and K3 (its int32 channels) in ``calls["K2"]`` and ``calls["K3"]``.
+    The kernels still run, and count their launches, as they would."""
+    import contextlib
+
+    from grendel_tpu_torch.ops import isect as I
+    from grendel_tpu_torch.ops import rasterize_cuda
+
+    real = (rasterize_cuda._blend_vjp, I.cumsum_i32_multi, I.cumsum_i32)
+
+    def blend_vjp(*args):
+        calls["K2"].append(tuple(a.detach() if torch.is_tensor(a) else a
+                                 for a in args))
+        return real[0](*args)
+
+    def scan_multi(xs):
+        calls["K3"].append([x.clone() for x in xs])
+        return real[1](xs)
+
+    def scan_one(x):
+        calls["K3"].append([x.clone()])
+        return real[2](x)
+
+    @contextlib.contextmanager
+    def patched():
+        calls["K2"], calls["K3"] = [], []
+        (rasterize_cuda._blend_vjp, I.cumsum_i32_multi,
+         I.cumsum_i32) = blend_vjp, scan_multi, scan_one
+        try:
+            yield
+        finally:
+            rasterize_cuda._blend_vjp, I.cumsum_i32_multi, I.cumsum_i32 = real
+    return patched()
+
+
+def loop_kernel_checks(calls):
+    """K1, K2 and K3 against their plain versions on the inputs one loop
+    step gave them. Returns each kernel's max abs error."""
+    require(len(calls["K2"]) == 1 and calls["K3"],
+            f"captured {len(calls['K2'])} K2 and {len(calls['K3'])} K3 "
+            f"calls in one loop step")
+    (m2d, con, col, op, ids, lo, hi, px0, py0, tw, th, mpt, c_total, final_t,
+     g, g_t) = calls["K2"][0]
+    blend_in = (m2d, con, col, op, ids, None, px0, py0, tw, th, mpt)
+    col_k, t_k, _, k1_err, k2_err = blend_check(
+        "a loop step's tile lists", blend_in, dict(tile_lo=lo, tile_hi=hi),
+        g, g_t)
+    require(torch.equal(col_k, c_total) and torch.equal(t_k, final_t),
+            "K1 run again differs from the loop step's forward")
+    k3_err = scan_check("a loop step", calls["K3"])
+    print(f"# K3 scan (a loop step): bit-equal to plain in "
+          f"{len(calls['K3'])} calls")
+    return {"K1": k1_err, "K2": k2_err, "K3": k3_err}
+
+
+def loop_path(dev, tag, kernels_of, scene_kw, model_path,
+              iterations=LOOP_ITERS):
+    """Phase 7: the host training loop through ``Trainer``, as a user
+    trains; K1-K3 held against their plain versions on the last step's
+    inputs. Returns the launches summed over the run's steps and each
+    kernel's max abs error on that step."""
+    import dataclasses
+
+    from grendel_tpu_torch.engine.checkpoint import find_latest_checkpoint
+    from grendel_tpu_torch.engine.trainer import Trainer
+    from grendel_tpu_torch.testing import StructuredSyntheticScene
+
+    t0 = time.perf_counter()
+    scene = StructuredSyntheticScene(**scene_kw)
+    print(f"# structured scene: {len(scene.train_cameras)} train / "
+          f"{len(scene.test_cameras)} held-out views at {scene_kw['width']}x"
+          f"{scene_kw['height']}, {scene.point_cloud.points.shape[0]} initial "
+          f"points, raytraced in {time.perf_counter() - t0:.1f} s")
+    cfg = loop_config(model_path, iterations)
+    trainer = Trainer(cfg, scene, device=dev)
+    cap0 = trainer.capacity
+    psnr_before = trainer.eval_psnr(scene.test_cameras, 0)
+
+    # every step must launch every kernel: zero the counters before each
+    # step, read them after it
+    totals = {name: 0 for name in kernels_of}
+    losses = []
+    real_step = trainer._step
+    calls = {}
+
+    def step(*args, **kw):
+        for wrapper in kernels_of.values():
+            wrapper.launches = 0
+        if len(losses) == iterations // BSZ - 1:     # the last step
+            with capture_kernel_inputs(calls):
+                state, metrics = real_step(*args, **kw)
+        else:
+            state, metrics = real_step(*args, **kw)
+        n = {name: w.launches for name, w in kernels_of.items()}
+        require(all(v > 0 for v in n.values()),
+                f"loop step {len(losses) + 1}: a kernel did not launch: {n}")
+        for name in totals:
+            totals[name] += n[name]
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    trainer._step = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the loop's own memory: the peak above what earlier phases hold
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    train_secs = trainer.end2end.total_seconds()
+    losses = torch.stack(losses).cpu()
+    psnr_after = trainer.eval_psnr(scene.test_cameras, 0)
+    n_alive = int(state.alive.sum())
+    print(f"# loop: {iterations} iterations ({len(losses)} steps) in "
+          f"{secs:.2f} s, {train_secs:.2f} s without checkpoint saves = "
+          f"{iterations / train_secs:.2f} iterations/s, peak device memory "
+          f"{peak_gib:.2f} GiB above the {base / 2**30:.2f} GiB held before "
+          f"it {tag}")
+    print(f"# loop: launches {totals}; loss {float(losses[0]):.5f} -> "
+          f"{float(losses[-1]):.5f}; capacity {cap0} -> {trainer.capacity}, "
+          f"events {trainer.capacity_events}; opacity resets at "
+          f"{trainer.opacity_reset_iters}; {n_alive} alive")
+    for rec in trainer.densify_history:
+        print(f"# loop densify: {rec}")
+    print(f"# loop held-out PSNR {psnr_before['psnr']:.3f} -> "
+          f"{psnr_after['psnr']:.3f} dB, L1 {psnr_before['l1']:.5f} -> "
+          f"{psnr_after['l1']:.5f} ({psnr_after['n']} views)")
+    require(len(losses) == iterations // BSZ
+            and int(state.iteration) == iterations,
+            f"loop ran {len(losses)} steps to iteration "
+            f"{int(state.iteration)}")
+    require(bool(torch.isfinite(losses).all()), "non-finite loop loss")
+    require(all(bool(torch.isfinite(p).all()) for p in state.params),
+            "non-finite parameter after the loop")
+    grew = sum(r["clone"] + r["split"] > 0 for r in trainer.densify_history)
+    require(grew >= 2, f"fewer than two densify rounds cloned or split: "
+            f"{trainer.densify_history}")
+    require(("capacity_grow" in [k for k, _ in trainer.capacity_events])
+            and trainer.capacity > cap0, "the capacity never grew")
+    require(bool(trainer.opacity_reset_iters), "no opacity reset fired")
+    require(n_alive == trainer.densify_history[-1]["alive"],
+            "alive count differs from the last densify's")
+    require(psnr_after["psnr"] > psnr_before["psnr"],
+            f"held-out PSNR did not rise: {psnr_before} -> {psnr_after}")
+    errs = loop_kernel_checks(calls)
+    calls.clear()
+
+    # resume from the mid-run checkpoint and take two more steps
+    ckpt = find_latest_checkpoint(model_path)
+    require(ckpt is not None and ckpt.endswith(str(LOOP_CHECKPOINT)),
+            f"checkpoint {ckpt}")
+    cfg2 = dataclasses.replace(cfg, start_checkpoint=ckpt,
+                               checkpoint_iterations=[])
+    cfg2.opt = dataclasses.replace(cfg.opt, densify_from_iter=10 ** 9,
+                                   densify_until_iter=0)
+    resumed = Trainer(cfg2, scene, device=dev)
+    require(int(resumed.state.iteration) == LOOP_CHECKPOINT,
+            f"resumed at iteration {int(resumed.state.iteration)}")
+    st = resumed.train(LOOP_CHECKPOINT + LOOP_RESUME_STEPS * BSZ)
+    require(int(st.iteration) == LOOP_CHECKPOINT + LOOP_RESUME_STEPS * BSZ
+            and all(bool(torch.isfinite(p).all()) for p in st.params),
+            f"resume reached iteration {int(st.iteration)}")
+    print(f"# loop resumed from {os.path.basename(ckpt)}: iteration "
+          f"{LOOP_CHECKPOINT} -> {int(st.iteration)}, {int(st.alive.sum())} "
+          f"alive")
+    return totals, errs
+
+
+def dma_check(dev):
+    """Phase 8, first half: K4 and K5 bit-equal to their plain versions at
+    an odd chunk count, at both row widths and 0 and DMA_VPU_ITERS rounds
+    (the microbenchmark checks its own default sizes in phase 8's second
+    half). Returns each kernel's max abs error."""
+    from grendel_tpu_torch.ops import dma_bench as D
+    from grendel_tpu_torch.scripts import microbench_dma as M
+
+    err = {"dma_contig": 0, "dma_scattered": 0}
+    for width in D.ROW_WIDTHS:
+        table, ids, src = M.make_inputs(DMA_N, DMA_ODD_CHUNKS * 128, width,
+                                        dev, seed=width)
+        for k, e in M.check_checksums(table, ids, src, DMA_VPU_ITERS).items():
+            err[k] = max(err[k], e)
+    print(f"# K4 and K5: checksums bit-equal to plain at {DMA_ODD_CHUNKS} "
+          f"chunks (W 16 and 128, vpu_iters 0 and {DMA_VPU_ITERS})")
+    return err
+
+
+def dma_path(dev, tag, n=DMA_N, cap=DMA_CAP, steps=20):
+    """Phase 8, second half: the microbenchmark as a user runs it, at both
+    row widths; it checks K4 and K5 against their plain versions before it
+    times them. Returns its launches, its result lines and each kernel's
+    max abs error."""
+    from grendel_tpu_torch.ops import dma_bench as D
+    from grendel_tpu_torch.scripts import microbench_dma as M
+
+    D.contig_checksum.launches = D.scattered_checksum.launches = 0
+    results = {}
+    err = {"dma_contig": 0, "dma_scattered": 0}
+    for width in D.ROW_WIDTHS:
+        res = M.run(n, cap, steps, DMA_VPU_ITERS, width, dev)
+        results[width] = res
+        for k, e in res["checksum_max_abs_err"].items():
+            err[k] = max(err[k], e)
+        print(f"# microbench_dma W={width} ({res['rows']} rows, "
+              f"{res['distinct_rows']} distinct, table "
+              f"{n * width * 4 / 2**20:.0f} MiB): " + ", ".join(
+                  f"{m} {res[m + '_ns_per_row']:.5f} ns/row" for m in M.MODES)
+              + f" {tag}")
+    launches = {"K4": D.contig_checksum.launches,
+                "K5": D.scattered_checksum.launches}
+    print(f"# microbenchmark launches: {launches}; checksums bit-equal to "
+          f"plain at {cap // 128} chunks")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the microbenchmark did not launch: {launches}")
+    return launches, results, err
+
+
+def scattered_bytes(distinct_rows, width, rows):
+    """The bytes K5 must move: each distinct table row it touches read
+    once, the ids read once, one checksum per chunk written."""
+    return distinct_rows * width * 4 + rows * 4 + rows // 128 * 4
+
+
+def dma_rows(dev, timer, tag, results):
+    """K4 and K5 timed for the kernels line at the microbenchmark's
+    default shapes and its inputs (K5 at the real 64-byte row, no
+    arithmetic); the microbenchmark's other K5 shapes, from its own
+    ``results``, beside their bounds."""
+    from grendel_tpu_torch.ops import dma_bench as D
+    from grendel_tpu_torch.scripts import microbench_dma as M
+
+    table, ids, src = M.make_inputs(DMA_N, DMA_CAP, 16, dev)
+    n_chunks = src.shape[0]
+    words = src.view(torch.int32).reshape(n_chunks, -1)
+    k4_bytes = src.numel() * 4 + n_chunks * 4
+    k4 = {"ms": timer.ms(lambda: D.contig_checksum(src), 20),
+          "plain_ms": timer.ms(lambda: D.contig_checksum_plain(src), 5),
+          "library_ms": timer.ms(lambda: words.sum(dim=1), 20),
+          "bound_ms": 1e3 * k4_bytes / HBM_BYTES_PER_S}
+    rows, distinct = ids.shape[0], int(ids.unique().numel())
+    require(distinct == results[16]["distinct_rows"],
+            "the timed K5 inputs are not the microbenchmark's")
+    k5_bytes = scattered_bytes(distinct, 16, rows)
+    k5 = {"ms": timer.ms(lambda: D.scattered_checksum(table, ids, 0), 20),
+          "plain_ms": timer.ms(
+              lambda: D.scattered_checksum_plain(table, ids, 0), 5),
+          "library_ms": timer.ms(lambda: table[ids].sum(), 20),
+          "bound_ms": 1e3 * k5_bytes / HBM_BYTES_PER_S}
+    for name, r, nbytes in (("K4", k4, k4_bytes),
+                            (f"K5 W=16 rows={rows}", k5, k5_bytes)):
+        print(f"# {name}, cold L2: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({nbytes} bytes) {tag}")
+    # every K5 shape of the microbenchmark (warm L2, back to back)
+    for width, res in sorted(results.items()):
+        nbytes = scattered_bytes(res["distinct_rows"], width, res["rows"])
+        print(f"# K5 W={width} in the microbenchmark: vpu_iters 0 "
+              f"{res['dma_scattered_ms']:.4f} ms, vpu_iters "
+              f"{res['vpu_iters']} {res['dma_scattered_vpu_ms']:.4f} ms, "
+              f"torch gather {res['torch_gather_ms']:.4f} ms; bound "
+              f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms ({nbytes} bytes: "
+              f"{res['distinct_rows']} distinct rows) {tag}")
+    return k4, k5
 
 
 def main():
@@ -273,7 +644,8 @@ def main():
           f"{sorted(logs) or 'nothing (cached)'}")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                        "spill")):
                 print(f"#   {name}: {line.strip()}")
 
     # --- main-path inputs ----------------------------------------------
@@ -323,48 +695,20 @@ def main():
     # --- 3. K3 against its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     scan_shapes = [(1, n_univ), (4, BSZ * isect_cap)]   # per render_batch
-    k3_err = 0
-    for c, m in scan_shapes + [(1, 1_200_000), (4, 1_200_000), (4, 524_288),
-                               (1, 1), (3, 4097), (2, 99_999), (8, 12_305)]:
-        xs = [torch.randint(-5000, 5000, (m,), generator=gen, device=dev,
-                            dtype=torch.int32) for _ in range(c)]
-        got = k3(xs)
-        want = scan_cuda.cumsum_i32_multi_plain(xs)
-        torch.cuda.synchronize()
-        for g, wnt in zip(got, want):
-            require(g.dtype == torch.int32 and torch.equal(g, wnt),
-                    f"K3 differs from its plain version at C={c} M={m}")
-            k3_err = max(k3_err, int((g.long() - wnt.long()).abs().max()))
+    k3_err = scan_check("random channels", [
+        [torch.randint(-5000, 5000, (m,), generator=gen, device=dev,
+                       dtype=torch.int32) for _ in range(c)]
+        for c, m in scan_shapes + [(1, 1_200_000), (4, 1_200_000),
+                                   (4, 524_288), (1, 1), (3, 4097),
+                                   (2, 99_999), (8, 12_305)]])
     print(f"# K3 scan: bit-equal to plain at {len(scan_shapes) + 7} shapes")
 
     # --- 4. K1 and K2 against their plain versions ------------------------
-    col_k, t_k = k1(*blend_in, **blend_kw)
-    col_p, t_p = rasterize_slots(*blend_in, **blend_kw)
-    torch.cuda.synchronize()
-    k1_err = max(float((col_k - col_p).abs().max()),
-                 float((t_k - t_p).abs().max()))
-    require(bool(torch.isfinite(col_k).all() and torch.isfinite(t_k).all()),
-            "K1 output not finite")
-    print(f"# K1 blend: max abs err vs plain {k1_err:.3e} over "
-          f"{t_k.shape[0]} slots x {t_k.shape[1]} px (tol {K1_TOL})")
-    require(k1_err <= K1_TOL, f"K1 differs from its plain version: {k1_err}")
-
-    bwd_kw = dict(blend_kw, c_total=col_k, final_t=t_k,
-                  g=torch.randn(col_k.shape, generator=gen, device=dev),
-                  g_t=torch.randn(t_k.shape, generator=gen, device=dev))
-    d_k = k2(*blend_in, **bwd_kw)
-    d_p = rasterize_slots_bwd(*blend_in, **bwd_kw)
-    torch.cuda.synchronize()
-    names = ("d_means2d", "d_conics", "d_colors", "d_opacities")
-    require(all(bool(torch.isfinite(x).all()) for x in d_k),
-            "K2 output not finite")
-    k2_rel = {n: rel_err(a, b) for n, a, b in zip(names, d_k, d_p)}
-    k2_err = max(float((a - b).abs().max()) for a, b in zip(d_k, d_p))
-    print(f"# K2 backward blend: max |K2 - plain| / max |plain| "
-          f"{ {n: f'{e:.3e}' for n, e in k2_rel.items()} }, max abs err "
-          f"{k2_err:.3e} (tol {K2_REL_TOL} relative)")
-    require(max(k2_rel.values()) <= K2_REL_TOL,
-            f"K2 differs from its plain version: {k2_rel}")
+    n_slots, n_px = BSZ * cfg.num_tiles, TILE_W * TILE_H
+    col_k, t_k, bwd_kw, k1_err, k2_err = blend_check(
+        "the garden's tile lists", blend_in, blend_kw,
+        torch.randn((n_slots, n_px, 3), generator=gen, device=dev),
+        torch.randn((n_slots, n_px), generator=gen, device=dev))
 
     stamp(t_start, "K1 and K2 checked")
 
@@ -453,7 +797,8 @@ def main():
 
     stamp(t_start, "training path checked")
 
-    # --- 7. timings --------------------------------------------------------
+    # --- host-clock timings of the render and the step: before phases 7
+    # and 8, in the process state in which the earlier slices took them ----
     walls = host_walls(lambda: R.render_batch(params, alive, cams, sh, cfg,
                                               bg=bg), 20)
     render_ms = statistics.median(walls)
@@ -499,7 +844,27 @@ def main():
     torch.cuda.synchronize()
     print(f"# train_step peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    stamp(t_start, "render and step timed")
 
+    # --- 7. the host training loop (this slice's main path) ---------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
+        loop_launches, loop_errs = loop_path(dev, tag, kernels_of,
+                                             LOOP_SCENE, tmp)
+    stamp(t_start, "host training loop checked")
+
+    # --- 8. the DMA microbenchmark's kernels and the microbenchmark -------
+    odd_errs = dma_check(dev)
+    dma_launches, dma_results, dma_errs = dma_path(dev, tag)
+    dma_errs = {k: max(e, odd_errs[k]) for k, e in dma_errs.items()}
+    stamp(t_start, "DMA microbenchmark checked")
+    # the same step again in the process the loop and the microbenchmark
+    # leave behind
+    walls = host_walls(one_step, 20)
+    print(f"# train_step after phases 7 and 8: median "
+          f"{statistics.median(walls):.3f} ms (min {min(walls):.3f}, max "
+          f"{max(walls):.3f}) over 20 calls {tag}")
+
+    # --- 9. kernel timings -------------------------------------------------
     timer = Timer()
     k1_ms = timer.ms(lambda: k1(*blend_in, **blend_kw), 20)
     k1_plain_ms = timer.ms(lambda: rasterize_slots(*blend_in, **blend_kw), 3)
@@ -552,14 +917,19 @@ def main():
               f" ms, bound {row['bound_ms']:.4f} ms (bytes) {tag}")
         for k in k3_row:
             k3_row[k] += row[k]
+    k4_row, k5_row = dma_rows(dev, timer, tag, dma_results)
     stamp(t_start, "timings done")
 
-    # launches: the training path's counts over its TRAIN_STEPS steps
+    # launches: K1-K3 over the host training loop's steps, K4 and K5 over
+    # the microbenchmark's run; max_abs_err: the larger of the checks on
+    # the garden's inputs and on a loop step's (K1-K3), and of the
+    # microbenchmark's own check and the odd chunk count's (K4, K5)
     kernels_line = {"kernels": [
         {"name": "rasterize_fwd", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:181",
-         "launches": launches["K1"], "max_abs_err": k1_err,
+         "launches": loop_launches["K1"],
+         "max_abs_err": max(k1_err, loop_errs["K1"]),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None},
         # K3's times are per render_batch (a train_step builds its tile
@@ -567,16 +937,32 @@ def main():
         {"name": "scan_i32", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/scan.cu",
          "replaces": "grendel_tpu/ops/scan_pallas.py:65",
-         "launches": launches["K3"], "max_abs_err": k3_err,
+         "launches": loop_launches["K3"],
+         "max_abs_err": max(k3_err, loop_errs["K3"]),
          "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
          "library_ms": k3_row["library_ms"]},
         {"name": "rasterize_bwd", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/rasterize_bwd.cu",
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:262",
-         "launches": launches["K2"], "max_abs_err": k2_err,
+         "launches": loop_launches["K2"],
+         "max_abs_err": max(k2_err, loop_errs["K2"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_bound_by, "library_ms": None},
+        # library: torch.sum over the int32 view (K4), the PyTorch row
+        # gather table[ids].sum() (K5)
+        {"name": "dma_contig", "route": "cuda",
+         "source": "grendel_tpu_torch/csrc/dma_bench.cu",
+         "replaces": "scripts/microbench_dma.py:98",
+         "launches": dma_launches["K4"],
+         "max_abs_err": dma_errs["dma_contig"], **k4_row,
+         "bound_by": "bytes"},
+        {"name": "dma_scattered", "route": "cuda",
+         "source": "grendel_tpu_torch/csrc/dma_bench.cu",
+         "replaces": "scripts/microbench_dma.py:126",
+         "launches": dma_launches["K5"],
+         "max_abs_err": dma_errs["dma_scattered"], **k5_row,
+         "bound_by": "bytes"},
     ]}
     print(card)
     print(json.dumps(kernels_line))

@@ -2,9 +2,10 @@
 
 Counterpart of grendel_tpu/cameras.py. ``Camera`` is host-side (numpy)
 scene metadata; ``CameraArrays`` holds the tensors the render path reads,
-one camera or a stacked batch (leading axis = batch). The lazily decoded
-ground-truth images of the JAX package belong to training and are not
-ported yet.
+one camera or a stacked batch (leading axis = batch). A camera holds its
+ground truth as a decoded (3, H, W) uint8 host array; the JAX package's
+lazy per-host decode (distributed dataset storage) waits for the
+multi-GPU slice.
 """
 
 from __future__ import annotations

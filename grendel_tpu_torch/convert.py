@@ -7,11 +7,15 @@ arrays, named as in both packages, so a model held by ``grendel_tpu``
 the port on the same values. :func:`train_state_from_numpy` carries a whole
 training state the same way (parameters, Adam moments and count, densify
 statistics, iteration), so both packages can continue one mid-training
-state. A model on disk crosses through its PLY instead
-(engine/gaussian_io.py).
+state. :func:`scene_from_numpy` carries a scene (cameras, ground truth,
+point cloud, extent), so both packages can train on the same one. A model
+on disk crosses through its PLY instead (engine/gaussian_io.py), a
+training state through its checkpoint (engine/checkpoint.py).
 """
 
 from __future__ import annotations
+
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -72,3 +76,55 @@ def train_state_from_numpy(params: dict, alive, adam_mu: dict, adam_nu: dict,
     return TrainState(params=p, alive=alive_t,
                       adam=AdamState(mu=mu, nu=nu, count=i32(adam_count)),
                       stats=st, iteration=i32(iteration))
+
+
+class NumpyScene(NamedTuple):
+    """A scene in ``Scene``'s duck type, as the trainer reads it."""
+
+    train_cameras: List
+    test_cameras: List
+    cameras_extent: float
+    point_cloud: object        # data.readers.PointCloud
+
+
+def cameras_from_numpy(cams: dict) -> list:
+    """Port cameras from arrays: ``cams`` holds ``world_view`` (C, 4, 4),
+    ``full_proj`` (C, 4, 4), ``camera_center`` (C, 3), ``tanfov`` (C, 2),
+    ``uid`` (C,) and ``gt_u8`` (C, 3, H, W) uint8, which also gives the
+    image size. The matrices are kept as given, so a camera projects
+    exactly as the package that made them."""
+    from .cameras import Camera
+
+    out = []
+    gt = np.asarray(cams["gt_u8"], np.uint8)
+    for i in range(gt.shape[0]):
+        wv = np.asarray(cams["world_view"][i], np.float32)
+        tx, ty = (float(v) for v in cams["tanfov"][i])
+        cam = Camera(uid=int(cams["uid"][i]), image_name=f"view_{i:03d}",
+                     R=wv[:3, :3].T.astype(np.float64),
+                     T=wv[:3, 3].astype(np.float64),
+                     fovx=2.0 * float(np.arctan(tx)),
+                     fovy=2.0 * float(np.arctan(ty)),
+                     width=gt.shape[3], height=gt.shape[2],
+                     gt_image_u8=gt[i])
+        cam.world_view = wv
+        cam.full_proj = np.asarray(cams["full_proj"][i], np.float32)
+        cam.camera_center = np.asarray(cams["camera_center"][i], np.float32)
+        out.append(cam)
+    return out
+
+
+def scene_from_numpy(train: dict, test: dict, points, colors,
+                     extent: float) -> NumpyScene:
+    """A scene from arrays: ``train`` and ``test`` cameras as
+    :func:`cameras_from_numpy` takes them (``test`` may be empty), the
+    initial point cloud ``points`` (M, 3) and ``colors`` (M, 3) in [0, 1],
+    and the cameras' ``extent``."""
+    from .data.readers import PointCloud
+
+    return NumpyScene(
+        train_cameras=cameras_from_numpy(train),
+        test_cameras=cameras_from_numpy(test) if test else [],
+        cameras_extent=float(extent),
+        point_cloud=PointCloud(points=np.asarray(points, np.float32),
+                               colors=np.asarray(colors, np.float32)))

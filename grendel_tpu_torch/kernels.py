@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scan", "rasterize_fwd", "rasterize_bwd")
+SOURCES = ("scan", "rasterize_fwd", "rasterize_bwd", "dma_bench")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -58,6 +58,14 @@ SIGNATURES = {
             _c_int, _c_int, _c_int, _c_int,  # n_slots tile_w tile_h mpt
             _ptr, _ptr, _ptr, _ptr,          # c_total final_t g_colors g_t
             _ptr, _ptr,                      # d_out stream
+        ]),
+    },
+    "dma_bench": {
+        "gts_dma_contig": (_c_int, [_ptr, _c_i64, _ptr, _ptr]),
+        "gts_dma_scattered": (_c_int, [
+            _ptr, _c_i64, _c_int,            # table n_rows width
+            _ptr, _c_i64, _c_int,            # ids n_chunks vpu_iters
+            _ptr, _ptr,                      # out stream
         ]),
     },
 }

@@ -4,17 +4,21 @@ Counterpart of grendel_tpu/models/gaussian_model.py. Every tensor has a
 capacity N on its leading axis; ``alive`` marks live slots, and dead slots
 render as opacity 0 (projection culls them). The raw parameterization is
 the 3DGS one: log-scales, logit-opacity, unnormalized quaternions, and SH
-split into the DC band and the rest. Initialization from a point cloud
-(kNN scales) belongs to training and is not ported yet.
+split into the DC band and the rest. :func:`init_from_pcd` starts a model
+from a point cloud (kNN scales).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..ops.knn import mean_dist2_to_knn
+from ..ops.sh import rgb_to_sh
+from ..utils.math3d import inverse_sigmoid
 
 
 class GaussianParams(NamedTuple):
@@ -65,6 +69,46 @@ def empty_params(capacity: int, max_sh_degree: int = 3,
         quats=quats,
         opacities_raw=torch.full((capacity,), -10.0, **f32),
     )
+
+
+def init_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
+                  max_sh_degree: int = 3, n_shards: int = 1,
+                  device=DEFAULT_DEVICE
+                  ) -> Tuple[GaussianParams, torch.Tensor]:
+    """(params, alive) from a host point cloud: ``points`` (M, 3) and
+    ``colors`` (M, 3) in [0, 1].
+
+    SH DC from the colors, the rest zero; isotropic log-scale from the
+    square root of the mean squared distance to the 3 nearest neighbors
+    (at least 1e-7); identity rotation; opacity 0.1. ``n_shards`` > 1
+    splits the points into equal capacity blocks, contiguous chunk d at
+    offset d * capacity / n_shards, as the JAX package lays out a sharded
+    model."""
+    dev = resolve_device(device)
+    m = points.shape[0]
+    if m > capacity:
+        raise ValueError(f"point cloud ({m}) exceeds capacity ({capacity})")
+    if capacity % n_shards:
+        raise ValueError(f"capacity {capacity} is not a multiple of "
+                         f"{n_shards} shards")
+    dist2 = np.maximum(mean_dist2_to_knn(points, k=3), 1e-7)
+    log_scale = np.log(np.sqrt(dist2))
+    block = capacity // n_shards
+    idx = torch.as_tensor(np.concatenate([
+        d * block + np.arange((d + 1) * m // n_shards - d * m // n_shards)
+        for d in range(n_shards)]).astype(np.int64), device=dev)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    params = empty_params(capacity, max_sh_degree, dev)
+    params.means3d[idx] = f32(points)
+    params.sh_dc[idx] = f32(rgb_to_sh(np.asarray(colors, np.float32)))[:, None]
+    params.scales_raw[idx] = f32(log_scale)[:, None].expand(m, 3)
+    params.opacities_raw[idx] = inverse_sigmoid(torch.tensor(0.1)).item()
+    alive = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    alive[idx] = True
+    return params, alive
 
 
 def pad_to_capacity(params: GaussianParams, alive: torch.Tensor,

@@ -10,7 +10,11 @@ package's, its random bits cannot be reproduced.
     benchmark (bench.py), the render and the training step at full width;
   * :func:`flagship_inputs` / :func:`flagship_training`: the small flagship
     scene of __graft_entry__.py, as numpy for both packages and as a port
-    training set-up.
+    training set-up;
+  * :class:`SyntheticScene` and :class:`StructuredSyntheticScene`: the
+    scenes the training loop trains on (``Scene``'s duck type), a random
+    Gaussian scene rendered to its ground truth, and the raytraced
+    hemisphere-rig scene with a held-out split.
 """
 
 from __future__ import annotations
@@ -22,11 +26,12 @@ import torch
 
 from .cameras import Camera, CameraArrays, batch_camera_arrays, camera_arrays
 from .config import OptimizationConfig
+from .data.readers import PointCloud
 from .device import DEFAULT_DEVICE, resolve_device
-from .engine.render import RenderConfig
+from .engine.render import RenderConfig, render_image
 from .engine.train import (TrainState, XyzLrSchedule, train_state_init,
                            train_step)
-from .models.gaussian_model import GaussianParams, activated
+from .models.gaussian_model import GaussianParams, activated, round_capacity
 from .models.optimizer import LrConfig, scaled_lrs
 from .ops.isect import isect_tiles
 from .ops.projection import project_gaussians
@@ -277,3 +282,277 @@ def flagship_training(inputs: FlagshipInputs, device=DEFAULT_DEVICE,
     cfg = RenderConfig(img_h=f.img_h, img_w=f.img_w, **f.render)
     return training_setup(state, f.cameras, f.gt_u8, f.bg, cfg, f.sh_degree,
                           opt)
+
+
+class SyntheticScene:
+    """A random Gaussian scene rendered to its ground truth, in
+    ``Scene``'s duck type (train_cameras, test_cameras, cameras_extent,
+    point_cloud); the scene of ``--synthetic`` training. The Gaussians come
+    from :func:`random_gaussians` (numpy), the ground truth from
+    ``render_image`` on ``device`` with 16x16 tiles, an entry capacity of
+    1 << 15 and a black background; ``n_cams + n_test`` cameras on a circle.
+    The initial point cloud is noisy samples of the true means."""
+
+    def __init__(self, n_cams: int = 12, n_test: int = 2, width: int = 160,
+                 height: int = 120, n_gaussians: int = 400,
+                 n_init_points: int = 300, sh_degree: int = 1, seed: int = 0,
+                 device=DEFAULT_DEVICE):
+        from .convert import params_from_numpy
+
+        dev = resolve_device(device)
+        g = random_gaussians(seed, n_gaussians, sh_degree=sh_degree)
+        params, alive = params_from_numpy(
+            *params_fields(*g, round_capacity(n_gaussians, 256)), dev)
+        cfg = RenderConfig(img_h=height, img_w=width, isect_capacity=1 << 15,
+                           max_per_tile=512, chunk=64)
+        bg = torch.zeros(3, dtype=torch.float32, device=dev)
+        cams = []
+        total = n_cams + n_test
+        for i in range(total):
+            cam = make_test_camera(width, height, angle=2 * np.pi * i / total)
+            cam.uid = i
+            with torch.no_grad():
+                img, _ = render_image(params, alive, camera_arrays(cam, dev),
+                                      sh_degree, cfg, bg=bg)
+            cam.gt_image_u8 = (torch.clamp(img, 0, 1) * 255).to(
+                torch.uint8).cpu().numpy()
+            cams.append(cam)
+        self.train_cameras = cams[:n_cams]
+        self.test_cameras = cams[n_cams:]
+        self.cameras_extent = 4.0 * 1.1
+
+        rng = np.random.default_rng(seed)
+        pts = g[0][rng.integers(0, n_gaussians, n_init_points)]
+        pts = pts + rng.normal(scale=0.05, size=pts.shape)
+        cols = rng.uniform(0.2, 0.8, (n_init_points, 3))
+        self.point_cloud = PointCloud(points=pts.astype(np.float32),
+                                      colors=cols.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The structured synthetic scene: a raytraced textured ground disk and
+# textured spheres, lambertian-shaded under a directional light with hard
+# shadows, seen by a hemisphere rig of cameras on three interleaved
+# elevation rings, every llffhold-th held out. Pure numpy, the same scene
+# as grendel_tpu/testing.py's.
+# ---------------------------------------------------------------------------
+
+
+def lookat_camera(pos, target, width: int, height: int, fovx: float = 1.1,
+                  uid: int = 0, name: str = "") -> Camera:
+    """Camera at ``pos`` looking at ``target``; the w2c rows are the camera
+    axes (x right, y image-down, z forward) and world +y is down."""
+    pos = np.asarray(pos, np.float64)
+    target = np.asarray(target, np.float64)
+    f = target - pos
+    f = f / np.linalg.norm(f)
+    r = np.cross([0.0, 1.0, 0.0], f)
+    nr = np.linalg.norm(r)
+    if nr <= 1e-6:
+        raise ValueError("degenerate look-at: forward parallel to world y")
+    r = r / nr
+    d = np.cross(f, r)
+    R_w2c = np.stack([r, d, f])
+    t_w2c = -R_w2c @ pos
+    fovy = 2 * np.arctan(np.tan(fovx / 2) * height / width)
+    return Camera(uid=uid, image_name=name or f"view_{uid:03d}",
+                  R=R_w2c.T, T=t_w2c, fovx=float(fovx), fovy=float(fovy),
+                  width=width, height=height)
+
+
+# (center_xz, radius, texture kind, two palette colors, texture frequency);
+# the spheres rest on the ground plane y = _GROUND_Y (world +y is down)
+_GROUND_Y = 0.8
+_PLANE_RADIUS = 6.0
+_LIGHT = np.array([0.35, -0.9, 0.2]) / np.linalg.norm([0.35, -0.9, 0.2])
+_STRUCT_SPHERES = [
+    ((0.00, 0.00), 0.52, "stripes", (0.85, 0.25, 0.20), (0.95, 0.85, 0.70), 9.0),
+    ((1.15, 0.55), 0.38, "checker", (0.20, 0.45, 0.85), (0.90, 0.90, 0.95), 6.0),
+    ((-1.05, 0.50), 0.33, "marble", (0.15, 0.60, 0.30), (0.92, 0.95, 0.88), 4.0),
+    ((0.65, -0.95), 0.25, "stripes", (0.90, 0.65, 0.15), (0.25, 0.20, 0.45), 14.0),
+    ((-0.70, -0.80), 0.22, "dots", (0.75, 0.20, 0.60), (0.95, 0.92, 0.80), 8.0),
+    ((0.10, 1.25), 0.18, "marble", (0.30, 0.30, 0.80), (0.85, 0.90, 0.98), 6.0),
+    ((-1.50, -0.35), 0.15, "checker", (0.85, 0.45, 0.20), (0.25, 0.25, 0.30), 8.0),
+    ((1.60, -0.45), 0.12, "stripes", (0.20, 0.70, 0.70), (0.95, 0.95, 0.95), 16.0),
+]
+
+
+def _sphere_params():
+    return [(np.array([cx, _GROUND_Y - r, cz]), r, kind, np.array(c1),
+             np.array(c2), freq)
+            for (cx, cz), r, kind, c1, c2, freq in _STRUCT_SPHERES]
+
+
+def _texture_plane(p):
+    """Checker with a low-frequency color wash on the ground disk."""
+    s = 0.55
+    check = ((np.floor(p[:, 0] / s) + np.floor(p[:, 2] / s)) % 2)
+    c1 = np.array([0.78, 0.74, 0.66])
+    c2 = np.array([0.35, 0.38, 0.42])
+    base = np.where(check[:, None] > 0.5, c1, c2)
+    wash = 0.5 + 0.5 * np.sin(0.7 * p[:, 0] + 0.9 * p[:, 2])
+    tint = np.stack([0.06 * wash, 0.03 * wash, -0.05 * wash], axis=-1)
+    return np.clip(base + tint, 0.0, 1.0)
+
+
+def _texture_sphere(p, center, radius, kind, c1, c2, freq):
+    q = (p - center) / radius
+    if kind == "stripes":
+        t = 0.5 + 0.5 * np.sin(freq * np.arctan2(q[:, 2], q[:, 0]))
+    elif kind == "checker":
+        u = np.arctan2(q[:, 2], q[:, 0])
+        v = np.arccos(np.clip(q[:, 1], -1, 1))
+        t = ((np.floor(u * freq / np.pi) + np.floor(v * freq / np.pi)) % 2)
+    elif kind == "dots":
+        t = (np.sin(freq * q[:, 0]) * np.sin(freq * q[:, 1])
+             * np.sin(freq * q[:, 2]) > 0.15).astype(np.float64)
+    else:  # marble
+        t = 0.5 + 0.5 * np.sin(freq * q[:, 0]
+                               + 2.5 * np.sin(2.2 * q[:, 1])
+                               + 1.5 * np.sin(3.1 * q[:, 2]))
+    return c1[None] * (1 - t[:, None]) + c2[None] * t[:, None]
+
+
+def _shade(points, normals, albedo, spheres, ambient=0.34, kd=0.62):
+    """Lambertian shading under the directional light with hard sphere
+    shadows; a shadow keeps some diffuse light."""
+    ndl = np.maximum(0.0, normals @ _LIGHT)
+    occ = np.zeros(points.shape[0], bool)
+    for c, r, *_ in spheres:
+        oc = points + 1e-3 * _LIGHT - c
+        b = oc @ _LIGHT
+        disc = b * b - (np.sum(oc * oc, axis=-1) - r * r)
+        occ |= (disc > 0) & (-b + np.sqrt(np.maximum(disc, 0)) > 0) & (-b > 0)
+    light = ambient + kd * ndl * np.where(occ, 0.15, 1.0)
+    return np.clip(albedo * light[:, None], 0.0, 1.0)
+
+
+def raytrace_image(cam: Camera, bg=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """The structured scene seen by ``cam``: (3, H, W) float32 in [0, 1].
+    Rays pass through the pixel centers of the projection's convention,
+    so the raytraced ground truth and the rasterized renders agree in
+    geometry to below a pixel."""
+    h, w = cam.height, cam.width
+    spheres = _sphere_params()
+    ndc_x = (2 * np.arange(w) + 1) / w - 1
+    ndc_y = (2 * np.arange(h) + 1) / h - 1
+    dx = (ndc_x * cam.tanfovx)[None, :].repeat(h, 0)
+    dy = (ndc_y * cam.tanfovy)[:, None].repeat(w, 1)
+    d_cam = np.stack([dx, dy, np.ones_like(dx)], axis=-1).reshape(-1, 3)
+    R_w2c = cam.world_view[:3, :3].astype(np.float64)
+    d = d_cam @ R_w2c                    # rows are camera axes: R^T @ d_cam
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = cam.camera_center.astype(np.float64)
+
+    n_ray = d.shape[0]
+    t_best = np.full(n_ray, np.inf)
+    obj = np.full(n_ray, -1, np.int32)   # -1 none, 0..n-1 spheres, 99 plane
+    for i, (c, r, *_) in enumerate(spheres):
+        b = d @ (o - c)
+        q = np.sum((o - c) ** 2) - r * r
+        disc = b * b - q
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        ok = (disc > 0) & (t > 1e-4) & (t < t_best)
+        t_best = np.where(ok, t, t_best)
+        obj = np.where(ok, i, obj)
+    dy_r = d[:, 1]
+    tp = (_GROUND_Y - o[1]) / np.where(np.abs(dy_r) < 1e-9, 1e-9, dy_r)
+    pp = o[None] + tp[:, None] * d
+    in_disk = (tp > 1e-4) & (pp[:, 0] ** 2 + pp[:, 2] ** 2
+                             < _PLANE_RADIUS ** 2) & (tp < t_best)
+    t_best = np.where(in_disk, tp, t_best)
+    obj = np.where(in_disk, 99, obj)
+
+    img = np.tile(np.asarray(bg, np.float64)[None], (n_ray, 1))
+    pts = o[None] + t_best[:, None] * d
+    m = obj == 99
+    if m.any():
+        normals = np.tile(np.array([0.0, -1.0, 0.0])[None], (m.sum(), 1))
+        img[m] = _shade(pts[m], normals, _texture_plane(pts[m]), spheres)
+    for i, (c, r, kind, c1, c2, freq) in enumerate(spheres):
+        m = obj == i
+        if not m.any():
+            continue
+        normals = (pts[m] - c) / r
+        albedo = _texture_sphere(pts[m], c, r, kind, c1, c2, freq)
+        img[m] = _shade(pts[m], normals, albedo, spheres)
+    return img.reshape(h, w, 3).transpose(2, 0, 1).astype(np.float32)
+
+
+def _structured_point_cloud(n_points: int, seed: int) -> PointCloud:
+    """An SfM-like initial cloud: noisy surface samples with shaded
+    colors, denser toward the center of the ground disk."""
+    rng = np.random.default_rng(seed)
+    spheres = _sphere_params()
+    areas = np.array([4 * np.pi * r * r for _, r, *_ in spheres])
+    plane_area = np.pi * 3.6 ** 2          # the camera-visible inner disk
+    w_all = np.concatenate([[plane_area], areas])
+    counts = (n_points * w_all / w_all.sum()).astype(int)
+    pts, cols = [], []
+    n_p = counts[0]
+    rad = 3.6 * np.sqrt(rng.random(n_p)) * (0.55 + 0.45 * rng.random(n_p))
+    az = 2 * np.pi * rng.random(n_p)
+    p = np.stack([rad * np.cos(az), np.full(n_p, _GROUND_Y),
+                  rad * np.sin(az)], axis=-1)
+    nrm = np.tile(np.array([0.0, -1.0, 0.0])[None], (n_p, 1))
+    pts.append(p)
+    cols.append(_shade(p, nrm, _texture_plane(p), spheres))
+    for (center, r, kind, c1, c2, freq), n_s in zip(spheres, counts[1:]):
+        u = rng.normal(size=(max(n_s, 8), 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        p = center[None] + r * u
+        pts.append(p)
+        cols.append(_shade(p, u, _texture_sphere(p, center, r, kind, c1, c2,
+                                                 freq), spheres))
+    pts = np.concatenate(pts) + rng.normal(scale=0.01,
+                                           size=(sum(len(x) for x in pts), 3))
+    return PointCloud(points=pts.astype(np.float32),
+                      colors=np.concatenate(cols).astype(np.float32))
+
+
+class StructuredSyntheticScene:
+    """The raytraced structured scene in ``Scene``'s duck type: ``n_cams``
+    cameras on three interleaved elevation rings of a hemisphere above the
+    scene, ordered by azimuth, every ``llffhold``-th held out, so test
+    views sit between training views on every ring."""
+
+    def __init__(self, width: int = 1280, height: int = 832,
+                 n_cams: int = 72, llffhold: int = 8,
+                 n_init_points: int = 100_000, seed: int = 0,
+                 fovx: float = 1.1):
+        target = np.array([0.0, 0.42, 0.0])
+        rings = [  # (distance from target, elevation above horizon, share)
+            (4.4, np.deg2rad(21.0), 0.5),
+            (3.8, np.deg2rad(38.0), 0.333),
+            (3.1, np.deg2rad(56.0), 0.167),
+        ]
+        counts = [max(3, int(round(n_cams * s))) for _, _, s in rings]
+        counts[0] += n_cams - sum(counts)
+        cams = []
+        for k, ((dist, elev, _), cnt) in enumerate(zip(rings, counts)):
+            for i in range(cnt):
+                # staggered rings, azimuth kept in [0, 2 pi) so the sort
+                # below interleaves by true azimuth
+                az = 2 * np.pi * ((i / cnt + k * 0.37) % 1.0)
+                pos = target + np.array([
+                    dist * np.cos(elev) * np.cos(az),
+                    -dist * np.sin(elev),               # world -y is up
+                    dist * np.cos(elev) * np.sin(az),
+                ])
+                cams.append((az, pos))
+        cams.sort(key=lambda t: t[0])
+        cameras = []
+        for uid, (az, pos) in enumerate(cams):
+            cam = lookat_camera(pos, target, width, height, fovx=fovx,
+                                uid=uid, name=f"view_{uid:03d}")
+            cam.gt_image_u8 = np.asarray(
+                np.clip(raytrace_image(cam), 0, 1) * 255).astype(np.uint8)
+            cameras.append(cam)
+        self.test_cameras = [c for i, c in enumerate(cameras)
+                             if i % llffhold == 0]
+        self.train_cameras = [c for i, c in enumerate(cameras)
+                              if i % llffhold != 0]
+        centers = np.stack([c.camera_center for c in cameras])
+        dists = np.linalg.norm(centers - centers.mean(0), axis=-1)
+        self.cameras_extent = float(dists.max() * 1.1)
+        self.point_cloud = _structured_point_cloud(n_init_points, seed)
