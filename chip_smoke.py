@@ -8,14 +8,19 @@ Phases, each of which fails the run:
   1. print the card (nvidia-smi name and power limit) and the versions;
   2. build the port's CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build time and the compiler's register report;
-  3. scan kernel K3 against its plain version: bit-equal at the main
-     path's shapes and at odd lengths;
+  3. scan kernel K3 bit-equal to torch.cumsum (its plain version): at
+     lengths 0, 1 and around one and three tiles for 1, 4 and 8
+     channels, at the main path's shapes and at odd lengths, over 1,000
+     back-to-back calls on one scratch, and across the wrap of the
+     scratch's epoch;
   4. blend kernel K1 against its plain version on the main path's real
      tile lists: max abs error <= 1e-5 on colors and on final_t; backward
      blend kernel K2 against its plain version on the same lists with
      random cotangents: every output finite, and max |K2 - plain| <=
      1e-4 max |plain| for each (the slack covers the order of the float
-     atomics);
+     atomics); both again on a saturating scene (opacity 0.999, 16x16
+     tiles) and on a small scene at 32x8, 64x4 and 128x2 tiles, where K2
+     walks 2 or 1 pixels a thread on other warp patches;
   5. the render path at full width: the garden-scale model (200,000 live
      Gaussians in a capacity of 262,144, SH 3) saved to PLY, loaded on the
      card and rendered by render_batch for 2 cameras at 1296x840 with
@@ -49,11 +54,17 @@ Phases, each of which fails the run:
      times them, and whose launch counters must show K4 and K5;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
-     8), a profiler breakdown of each, and each kernel, its plain version
-     and the library call (CUDA events, with the L2 cache flushed before
-     each launch), beside the least time the card could take.
+     8), a profiler breakdown of each with the step's device time, and
+     each kernel, its plain version and the library call (CUDA events,
+     with the L2 cache flushed before each launch), beside the least time
+     the card could take; each kernel also on the device's clock alone
+     (``device_ms``: the host's time to reach the launch hidden); K2 also
+     on the loop step's inputs, K3 per shape with its wrapper's host time
+     per call.
 
-Prints one ``{"kernels": [...]}`` line, then as its last line
+``--save-k2 DIR`` also saves K2's inputs on the garden and on the loop's
+last step for grendel_tpu_torch/scripts/time_kernels.py. Prints one
+``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is not beside this file.
 """
@@ -109,30 +120,43 @@ def card_line():
 
 
 class Timer:
-    """Median device time of one call, from CUDA events around each launch,
-    with the L2 cache flushed before every launch (the 50 MB L2 would
-    otherwise hold a previous launch's inputs)."""
+    """Median time of one call (``kernels.cold_ms``): CUDA events around
+    each launch, with the L2 cache flushed before every launch (the 50 MB
+    L2 would otherwise hold a previous launch's inputs). ``ms`` also counts
+    any time the card waits for the host to reach the launch, as a step
+    that the host holds back does; ``device_ms`` hides it behind a spin on
+    the card and reads the device's time alone."""
 
     def __init__(self):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def ms(self, fn, reps):
+        from grendel_tpu_torch.kernels import cold_ms
+
+        return cold_ms(fn, reps, self.flush)
+
+    def device_ms(self, fn, reps):
+        from grendel_tpu_torch.kernels import cold_ms
+
+        return cold_ms(fn, reps, self.flush, spin=True)
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call of ``fn`` over ``calls`` calls back to
+    back with no synchronize between them: the time the host takes to
+    enqueue one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-        torch.cuda.synchronize()
-        events = []
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
-def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, chunk=64):
+def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, tile_w=TILE_W,
+                 tile_h=TILE_H, max_per_tile=MAX_PER_TILE, chunk=64):
     """(entry, pixel) pairs the front-to-back walk must evaluate: per
     pixel, the entries of its slot's span up to and including the one that
     stops it (or the whole span); and, of those, the pairs it blends."""
@@ -140,8 +164,8 @@ def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, chunk=64):
     from grendel_tpu_torch.ops.rasterize_torch import slot_pixels
 
     lo, hi = lo.long(), hi.long()
-    hi_eff = torch.minimum(hi, lo + MAX_PER_TILE)
-    px, py = slot_pixels(px0, py0, TILE_W, TILE_H)
+    hi_eff = torch.minimum(hi, lo + max_per_tile)
+    px, py = slot_pixels(px0, py0, tile_w, tile_h)
     t = torch.ones_like(px)
     done = torch.zeros_like(px, dtype=torch.bool)
     pairs = torch.zeros((), dtype=torch.int64, device=px.device)
@@ -172,7 +196,9 @@ def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, chunk=64):
 def profile(fn, calls, top=14):
     """Device time by kernel over ``calls`` calls of ``fn`` under
     torch.profiler, per call, and the share of the window's wall time the
-    device was busy (the profiler's own overhead lengthens the window)."""
+    device was busy (the profiler's own overhead lengthens the window).
+    Returns the device ms per call and the rows (ms, launches, name) per
+    call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -197,6 +223,7 @@ def profile(fn, calls, top=14):
           f"), {sum(r[1] for r in rows):.0f} kernel launches per call")
     for ms, n, key in rows[:top]:
         print(f"#   {ms:8.4f} ms  {n:5.1f}x  {key[:90]}")
+    return busy_ms, rows
 
 
 def host_walls(fn, calls):
@@ -278,8 +305,84 @@ def scan_check(what, calls):
             require(g.dtype == torch.int32 and torch.equal(g, w),
                     f"K3 differs from its plain version ({what}) at "
                     f"C={len(xs)} M={xs[0].shape[0]}")
-            err = max(err, int((g.long() - w.long()).abs().max()))
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
     return err
+
+
+def scan_stress(dev, gen, main_shapes):
+    """Phase 3: K3 bit-equal to torch.cumsum at the edges of its tile, at
+    the main path's shapes and at odd lengths, over 1,000 back-to-back
+    calls on one scratch and across the wrap of the scratch's epoch.
+    Returns the max abs error
+    (0) and the number of calls checked."""
+    from grendel_tpu_torch.ops import scan_cuda
+
+    tile = scan_cuda.tile_elems()
+    shapes = [(c, m) for m in (0, 1, tile - 1, tile, tile + 1, 3 * tile + 17)
+              for c in (1, 4, 8)] + list(main_shapes) + [
+        (1, 1_200_000), (4, 1_200_000), (4, 524_288), (3, 4097),
+        (2, 99_999), (8, 12_305)]                      # odd lengths
+
+    def chans(c, m):
+        return [torch.randint(-5000, 5000, (m,), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(c)]
+
+    err = scan_check("tile edges and the main path's shapes",
+                     [chans(c, m) for c, m in shapes])
+    n = len(shapes)
+    # 1,000 calls back to back on one scratch, checked after the last
+    scratch = scan_cuda.scan_scratch(dev)
+    inputs = [chans(c, m) for c, m in ((1, 3 * tile + 17), (4, 2 * tile),
+                                       (2, 100_000))]
+    words = scratch.words
+    outs = [scan_cuda.cumsum_i32_multi(inputs[i % 3]) for i in range(1000)]
+    require(scratch.words is words, "the scan scratch was reallocated")
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        for g, x in zip(got, inputs[i % 3]):
+            require(torch.equal(g, torch.cumsum(x, 0, dtype=torch.int32)),
+                    f"K3 back-to-back call {i} differs from torch.cumsum")
+    n += len(outs)
+    # across the epoch's wrap: the last epoch, then 1 and 2 again
+    scratch.epoch = scan_cuda.EPOCH_MAX - 1
+    epochs = []
+    for _ in range(3):
+        err = max(err, scan_check("across the epoch's wrap", [inputs[0]]))
+        epochs.append(scratch.epoch)
+    require(epochs == [scan_cuda.EPOCH_MAX, 1, 2],
+            f"epochs across the wrap: {epochs}")
+    return err, n + 3
+
+
+def small_blend_inputs(dev, tile_w=16, tile_h=16, w=64, h=48,
+                       opacity=0.999):
+    """A small scene's blend inputs through the port: 1,200 Gaussians of
+    seed 11 projected at ``w`` x ``h``, flat tile lists of ``tile_w`` x
+    ``tile_h``. By default the saturating scene, built as
+    tests/test_torch_blend_bwd.py builds its saturated one (64x48, every
+    opacity set to 0.999, 16x16 tiles); ``opacity=None`` keeps the
+    Gaussians' own."""
+    from grendel_tpu_torch.cameras import camera_arrays
+    from grendel_tpu_torch.ops.isect import isect_tiles
+    from grendel_tpu_torch.ops.projection import project_gaussians
+    from grendel_tpu_torch.testing import make_test_camera, random_gaussians
+
+    tx, ty = -(-w // tile_w), -(-h // tile_h)
+    g = [torch.from_numpy(x).to(dev)
+         for x in random_gaussians(11, 1200, sh_degree=3)]
+    ca = camera_arrays(make_test_camera(width=w, height=h), dev)
+    s = project_gaussians(*g, torch.ones(1200, dtype=torch.bool, device=dev),
+                          ca.viewmat, ca.full_proj, ca.campos, ca.tanfov, h,
+                          w, 3)
+    isect = isect_tiles(s.means2d, s.radii, s.depths, tile_w, tile_h, tx, ty,
+                        1 << 17)
+    t_ids = torch.arange(tx * ty, dtype=torch.int32, device=dev)
+    op = s.opacities if opacity is None else torch.full_like(s.opacities,
+                                                             opacity)
+    return ((s.means2d, s.conics, s.colors, op, isect.gauss_ids,
+             isect.tile_offsets, (t_ids % tx) * tile_w, (t_ids // tx) * tile_h,
+             tile_w, tile_h, 1024), {})
 
 
 def train_phase(kernels_of, tr, steps):
@@ -389,8 +492,8 @@ def loop_path(dev, tag, kernels_of, scene_kw, model_path,
               iterations=LOOP_ITERS):
     """Phase 7: the host training loop through ``Trainer``, as a user
     trains; K1-K3 held against their plain versions on the last step's
-    inputs. Returns the launches summed over the run's steps and each
-    kernel's max abs error on that step."""
+    inputs. Returns the launches summed over the run's steps, each
+    kernel's max abs error on that step and K2's inputs there."""
     import dataclasses
 
     from grendel_tpu_torch.engine.checkpoint import find_latest_checkpoint
@@ -477,6 +580,7 @@ def loop_path(dev, tag, kernels_of, scene_kw, model_path,
     require(psnr_after["psnr"] > psnr_before["psnr"],
             f"held-out PSNR did not rise: {psnr_before} -> {psnr_after}")
     errs = loop_kernel_checks(calls)
+    step_k2_in = calls["K2"][0]
     calls.clear()
 
     # resume from the mid-run checkpoint and take two more steps
@@ -497,7 +601,7 @@ def loop_path(dev, tag, kernels_of, scene_kw, model_path,
     print(f"# loop resumed from {os.path.basename(ckpt)}: iteration "
           f"{LOOP_CHECKPOINT} -> {int(st.iteration)}, {int(st.alive.sum())} "
           f"alive")
-    return totals, errs
+    return totals, errs, step_k2_in
 
 
 def dma_check(dev):
@@ -568,6 +672,7 @@ def dma_rows(dev, timer, tag, results):
     words = src.view(torch.int32).reshape(n_chunks, -1)
     k4_bytes = src.numel() * 4 + n_chunks * 4
     k4 = {"ms": timer.ms(lambda: D.contig_checksum(src), 20),
+          "device_ms": timer.device_ms(lambda: D.contig_checksum(src), 20),
           "plain_ms": timer.ms(lambda: D.contig_checksum_plain(src), 5),
           "library_ms": timer.ms(lambda: words.sum(dim=1), 20),
           "bound_ms": 1e3 * k4_bytes / HBM_BYTES_PER_S}
@@ -576,13 +681,16 @@ def dma_rows(dev, timer, tag, results):
             "the timed K5 inputs are not the microbenchmark's")
     k5_bytes = scattered_bytes(distinct, 16, rows)
     k5 = {"ms": timer.ms(lambda: D.scattered_checksum(table, ids, 0), 20),
+          "device_ms": timer.device_ms(
+              lambda: D.scattered_checksum(table, ids, 0), 20),
           "plain_ms": timer.ms(
               lambda: D.scattered_checksum_plain(table, ids, 0), 5),
           "library_ms": timer.ms(lambda: table[ids].sum(), 20),
           "bound_ms": 1e3 * k5_bytes / HBM_BYTES_PER_S}
     for name, r, nbytes in (("K4", k4, k4_bytes),
                             (f"K5 W=16 rows={rows}", k5, k5_bytes)):
-        print(f"# {name}, cold L2: {r['ms']:.4f} ms, plain "
+        print(f"# {name}, cold L2: {r['ms']:.4f} ms (device alone "
+              f"{r['device_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({nbytes} bytes) {tag}")
     # every K5 shape of the microbenchmark (warm L2, back to back)
@@ -597,7 +705,15 @@ def dma_rows(dev, timer, tag, results):
     return k4, k5
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke run of the port.")
+    ap.add_argument("--save-k2", metavar="DIR",
+                    help="save K2's inputs on the garden (k2_garden.pt) and "
+                    "on the loop's last step (k2_step.pt) in DIR, for "
+                    "grendel_tpu_torch/scripts/time_kernels.py")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs a CUDA GPU", file=sys.stderr)
@@ -609,16 +725,13 @@ def main():
     from grendel_tpu_torch.engine import render as R
     from grendel_tpu_torch.engine.gaussian_io import load_ply, save_ply
     from grendel_tpu_torch.engine.loss import batch_loss
-    from grendel_tpu_torch.models.gaussian_model import (GaussianParams,
-                                                         activated)
+    from grendel_tpu_torch.models.gaussian_model import GaussianParams
     from grendel_tpu_torch.models.optimizer import adam_step
-    from grendel_tpu_torch.ops import isect as I
     from grendel_tpu_torch.ops import rasterize_cuda, scan_cuda
-    from grendel_tpu_torch.ops.projection import (ProjectedSplats,
-                                                  project_gaussians_batched)
     from grendel_tpu_torch.ops.rasterize_torch import (rasterize_slots,
                                                        rasterize_slots_bwd)
     from grendel_tpu_torch.testing import (flagship_inputs, flagship_training,
+                                           garden_blend_inputs,
                                            garden_render_config, garden_scene,
                                            garden_training, make_test_camera,
                                            params_fields, random_gaussians)
@@ -661,7 +774,6 @@ def main():
         torch.equal(a, b) for a, b in zip(params, scene.params)),
         "PLY round trip changed the model")
     h, w, sh = scene.img_h, scene.img_w, scene.sh_degree
-    act = activated(params)
     cfg, n_isect, n_kept = garden_render_config(scene)
     require((cfg.tile_w, cfg.tile_h, cfg.max_per_tile)
             == (TILE_W, TILE_H, MAX_PER_TILE), "garden tile geometry")
@@ -673,35 +785,19 @@ def main():
           f"{blend_cap}/cam")
 
     # the blend's inputs exactly as render_batch builds them
-    splats = project_gaussians_batched(act.means3d, act.scales, act.quats,
-                                       act.opacities, act.sh, alive, cams,
-                                       h, w, sh)
-    n_univ = splats.means2d.shape[0] * splats.means2d.shape[1]
-    flat = ProjectedSplats(*(x.reshape((n_univ,) + x.shape[2:])
-                             for x in splats))
-    isect = I.isect_tile_rows_blocked(
-        flat.means2d, flat.radii, flat.depths, BSZ, TILE_W, TILE_H, tiles_x,
-        tiles_y, BSZ * isect_cap, opacities=flat.opacities)
-    ids, tlo, thi = I.compact_entries_blocked(
-        isect.gauss_ids, isect.tile_lo, isect.tile_hi, BSZ, cfg.num_tiles,
-        isect_cap, blend_cap)
-    px0, py0 = R._slot_origins(BSZ * cfg.num_tiles, cfg, dev)
-    blend_in = (flat.means2d, flat.conics, flat.colors, flat.opacities, ids,
-                None, px0, py0, TILE_W, TILE_H, MAX_PER_TILE)
-    blend_kw = dict(tile_lo=tlo, tile_hi=thi)
+    blend_in, blend_kw, n_univ = garden_blend_inputs(params, alive, scene, cfg)
+    ids, px0, py0 = blend_in[4], blend_in[6], blend_in[7]
+    tlo, thi = blend_kw["tile_lo"], blend_kw["tile_hi"]
 
     stamp(t_start, "inputs built")
 
     # --- 3. K3 against its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     scan_shapes = [(1, n_univ), (4, BSZ * isect_cap)]   # per render_batch
-    k3_err = scan_check("random channels", [
-        [torch.randint(-5000, 5000, (m,), generator=gen, device=dev,
-                       dtype=torch.int32) for _ in range(c)]
-        for c, m in scan_shapes + [(1, 1_200_000), (4, 1_200_000),
-                                   (4, 524_288), (1, 1), (3, 4097),
-                                   (2, 99_999), (8, 12_305)]])
-    print(f"# K3 scan: bit-equal to plain at {len(scan_shapes) + 7} shapes")
+    k3_err, n_checked = scan_stress(dev, gen, scan_shapes)
+    print(f"# K3 scan: bit-equal to torch.cumsum in {n_checked} calls (tile "
+          f"edges at C 1, 4, 8; the main path's shapes; odd lengths; 1,000 "
+          f"back to back on one scratch; across the epoch's wrap)")
 
     # --- 4. K1 and K2 against their plain versions ------------------------
     n_slots, n_px = BSZ * cfg.num_tiles, TILE_W * TILE_H
@@ -709,6 +805,26 @@ def main():
         "the garden's tile lists", blend_in, blend_kw,
         torch.randn((n_slots, n_px, 3), generator=gen, device=dev),
         torch.randn((n_slots, n_px), generator=gen, device=dev))
+
+    # the saturating scene, then other tile shapes: K2 picks 2 pixels a
+    # thread on 32x8 tiles and 1 on 64x4 (8x4 warp patches) and 128x2 (16x2)
+    for what, kw in (("a saturating scene", {}),
+                     ("a small scene, 32x8 tiles",
+                      dict(tile_w=32, tile_h=8, w=128, opacity=None)),
+                     ("a small scene, 64x4 tiles",
+                      dict(tile_w=64, tile_h=4, w=128, opacity=None)),
+                     ("a small scene, 128x2 tiles",
+                      dict(tile_w=128, tile_h=2, w=128, opacity=None))):
+        s_in, s_kw = small_blend_inputs(dev, **kw)
+        s_px = (s_in[6].shape[0], s_in[8] * s_in[9])    # (slots, pixels)
+        _, t_s, _, s_k1_err, s_k2_err = blend_check(
+            what, s_in, s_kw,
+            torch.randn(s_px + (3,), generator=gen, device=dev),
+            torch.randn(s_px, generator=gen, device=dev))
+        if not kw:
+            require(float(t_s.min()) < 2e-4, "the saturating scene did not "
+                    f"saturate: min final_t {float(t_s.min())}")
+        k1_err, k2_err = max(k1_err, s_k1_err), max(k2_err, s_k2_err)
 
     stamp(t_start, "K1 and K2 checked")
 
@@ -818,7 +934,13 @@ def main():
           f"(min {min(walls):.3f}, max {max(walls):.3f}) over 20 calls "
           f"= {BSZ * 1e3 / step_ms:.1f} images/s {tag}")
     print("# train_step profile:")
-    profile(one_step, 5)
+    step_dev_ms, rows = profile(one_step, 5)
+    per_kernel = {k: sum(n for _, n, key in rows if name in key)
+                  for k, name in (("K1", "rasterize_fwd"),
+                                  ("K2", "rasterize_bwd"), ("K3", "scan"))}
+    print(f"# train_step device time per step: {step_dev_ms:.3f} ms (the "
+          f"profiler's sum over its kernels, 5 steps); launches per step "
+          f"{per_kernel} {tag}")
     # the step's layers alone, host clock: the loss (forward and backward
     # on a fixed image) and the Adam update; the render's forward and
     # backward, the densify statistics and autograd take the rest
@@ -848,8 +970,14 @@ def main():
 
     # --- 7. the host training loop (this slice's main path) ---------------
     with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
-        loop_launches, loop_errs = loop_path(dev, tag, kernels_of,
-                                             LOOP_SCENE, tmp)
+        loop_launches, loop_errs, step_k2_in = loop_path(
+            dev, tag, kernels_of, LOOP_SCENE, tmp)
+    if args.save_k2:
+        tile_in = blend_in[:5] + (blend_kw["tile_lo"], blend_kw["tile_hi"])
+        torch.save(tile_in + blend_in[6:] + (
+            bwd_kw["c_total"], bwd_kw["final_t"], bwd_kw["g"], bwd_kw["g_t"]),
+            os.path.join(args.save_k2, "k2_garden.pt"))
+        torch.save(step_k2_in, os.path.join(args.save_k2, "k2_step.pt"))
     stamp(t_start, "host training loop checked")
 
     # --- 8. the DMA microbenchmark's kernels and the microbenchmark -------
@@ -867,11 +995,12 @@ def main():
     # --- 9. kernel timings -------------------------------------------------
     timer = Timer()
     k1_ms = timer.ms(lambda: k1(*blend_in, **blend_kw), 20)
+    k1_dev_ms = timer.device_ms(lambda: k1(*blend_in, **blend_kw), 20)
     k1_plain_ms = timer.ms(lambda: rasterize_slots(*blend_in, **blend_kw), 3)
-    pairs, blended = walked_pairs(flat.means2d, flat.conics, flat.opacities,
+    pairs, blended = walked_pairs(blend_in[0], blend_in[1], blend_in[3],
                                   ids, tlo, thi, px0, py0)
     entries = int((torch.minimum(thi, tlo + MAX_PER_TILE) - tlo).sum())
-    m = flat.means2d.shape[0]
+    m = blend_in[0].shape[0]
     n_pix = t_k.numel()
     splat_bytes = m * 9 * 4 + ids.numel() * 4 + 4 * tlo.numel() * 4
     k1_bytes = splat_bytes + n_pix * 4 * 4
@@ -881,10 +1010,12 @@ def main():
     k1_bound_by = "operations" if k1_ops_ms >= k1_bytes_ms else "bytes"
     print(f"# K1: {entries} entries walked in spans, {pairs} (entry, pixel) "
           f"pairs to stop, {blended} blended, {k1_bytes} bytes; {k1_ms:.4f} "
-          f"ms, plain {k1_plain_ms:.2f} ms, bound {k1_bound:.4f} ms "
+          f"ms (device alone {k1_dev_ms:.4f} ms), plain {k1_plain_ms:.2f} "
+          f"ms, bound {k1_bound:.4f} ms "
           f"({k1_bound_by}) {tag}")
 
     k2_ms = timer.ms(lambda: k2(*blend_in, **bwd_kw), 20)
+    k2_dev_ms = timer.device_ms(lambda: k2(*blend_in, **bwd_kw), 20)
     k2_plain_ms = timer.ms(lambda: rasterize_slots_bwd(*blend_in, **bwd_kw),
                            1)
     # inputs: the splats, ids and spans, c_total, final_t and the two
@@ -895,31 +1026,68 @@ def main():
     k2_ops_ms = 1e3 * k2_ops / FP32_OPS_PER_S
     k2_bound = max(k2_bytes_ms, k2_ops_ms)
     k2_bound_by = "operations" if k2_ops_ms >= k2_bytes_ms else "bytes"
-    print(f"# K2: {k2_ops} operations, {k2_bytes} bytes; {k2_ms:.4f} ms, "
-          f"plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms "
+    print(f"# K2: {k2_ops} operations, {k2_bytes} bytes; {k2_ms:.4f} ms "
+          f"(device alone {k2_dev_ms:.4f} ms), plain {k2_plain_ms:.2f} ms, "
+          f"bound {k2_bound:.4f} ms "
           f"({k2_bound_by}) {tag}")
+    # K2 on the inputs of the loop's last step: a trained scene blends far
+    # more of its walked pairs than the random garden
+    (m2d, con, col, op, sids, slo, shi, spx0, spy0, stw, sth, smpt, sc, sft,
+     sg, sgt) = step_k2_in
+    step_in = (m2d, con, col, op, sids, None, spx0, spy0, stw, sth, smpt)
+    step_kw = dict(tile_lo=slo, tile_hi=shi, c_total=sc, final_t=sft, g=sg,
+                   g_t=sgt)
+    k2_step_ms = timer.ms(lambda: k2(*step_in, **step_kw), 20)
+    k2_step_dev_ms = timer.device_ms(lambda: k2(*step_in, **step_kw), 20)
+    s_pairs, s_blended = walked_pairs(m2d, con, op, sids, slo, shi, spx0,
+                                      spy0, stw, sth, smpt)
+    s_bytes = (m2d.shape[0] * 18 * 4 + sids.numel() * 4 + 4 * slo.numel() * 4
+               + sft.numel() * 8 * 4)
+    s_ops = K1_OPS_PER_PAIR * s_pairs + K2_OPS_PER_BLENDED * s_blended
+    s_bound = max(1e3 * s_bytes / HBM_BYTES_PER_S,
+                  1e3 * s_ops / FP32_OPS_PER_S)
+    print(f"# K2 on a loop step ({sft.shape[0]} slots, {m2d.shape[0]} "
+          f"splats): {s_pairs} pairs walked, {s_blended} blended "
+          f"({s_blended / max(s_pairs, 1):.1%}), {s_ops} operations; "
+          f"{k2_step_ms:.4f} ms (device alone {k2_step_dev_ms:.4f} ms), "
+          f"bound {s_bound:.4f} ms {tag}")
 
-    k3_row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    # K3 per shape; its library time is the one PyTorch call that computes
+    # the same function: torch.cumsum of the one channel at C=1, of the
+    # stacked channels at C=4 (the plain version is one call per channel);
+    # on both clocks, beside the host's time to enqueue one call of each
+    k3_row = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "library_ms": 0.0}
     for c, m_len in scan_shapes:
         xs = [torch.randint(0, 64, (m_len,), generator=gen, device=dev,
                             dtype=torch.int32) for _ in range(c)]
         stacked = torch.stack(xs)
+        lib = ((lambda: torch.cumsum(xs[0], 0, dtype=torch.int32)) if c == 1
+               else (lambda: torch.cumsum(stacked, 1, dtype=torch.int32)))
         row = {
             "ms": timer.ms(lambda: k3(xs), 50),
+            "device_ms": timer.device_ms(lambda: k3(xs), 50),
             "plain_ms": timer.ms(
                 lambda: scan_cuda.cumsum_i32_multi_plain(xs), 50),
-            "library_ms": timer.ms(
-                lambda: torch.cumsum(stacked, 1, dtype=torch.int32), 50),
+            "library_ms": timer.ms(lib, 50),
             "bound_ms": 1e3 * 2 * c * m_len * 4 / HBM_BYTES_PER_S,
         }
-        print(f"# K3 C={c} M={m_len}: {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, torch.cumsum {row['library_ms']:.4f}"
-              f" ms, bound {row['bound_ms']:.4f} ms (bytes) {tag}")
+        lib_dev_ms = timer.device_ms(lib, 50)
+        k3_host, lib_host = host_us(lambda: k3(xs)), host_us(lib)
+        print(f"# K3 C={c} M={m_len}: {row['ms']:.4f} ms (device alone "
+              f"{row['device_ms']:.4f} ms; host {k3_host:.2f} us a call), "
+              f"plain ({c} torch.cumsum) {row['plain_ms']:.4f} ms, library "
+              f"(torch.cumsum {'of the channel' if c == 1 else 'stacked'}) "
+              f"{row['library_ms']:.4f} ms (device alone {lib_dev_ms:.4f} "
+              f"ms; host {lib_host:.2f} us a call), bound "
+              f"{row['bound_ms']:.4f} ms (bytes) {tag}")
         for k in k3_row:
             k3_row[k] += row[k]
     k4_row, k5_row = dma_rows(dev, timer, tag, dma_results)
     stamp(t_start, "timings done")
 
+    # ms: the clock of the kernels line, on which the card may wait for
+    # the host to reach the launch; device_ms: the device's time alone.
     # launches: K1-K3 over the host training loop's steps, K4 and K5 over
     # the microbenchmark's run; max_abs_err: the larger of the checks on
     # the garden's inputs and on a loop step's (K1-K3), and of the
@@ -930,16 +1098,18 @@ def main():
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:181",
          "launches": loop_launches["K1"],
          "max_abs_err": max(k1_err, loop_errs["K1"]),
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_bound_by, "library_ms": None},
+         "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
         # K3's times are per render_batch (a train_step builds its tile
-        # lists once, at the same two shapes): the sum over both launches
+        # lists once, at the same two shapes): the sum over both launches,
+        # the library's of the one call per shape
         {"name": "scan_i32", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/scan.cu",
          "replaces": "grendel_tpu/ops/scan_pallas.py:65",
          "launches": loop_launches["K3"],
          "max_abs_err": max(k3_err, loop_errs["K3"]),
-         "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
+         "ms": k3_row["ms"], "device_ms": k3_row["device_ms"],
+         "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
          "library_ms": k3_row["library_ms"]},
         {"name": "rasterize_bwd", "route": "cuda",
@@ -947,8 +1117,8 @@ def main():
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:262",
          "launches": loop_launches["K2"],
          "max_abs_err": max(k2_err, loop_errs["K2"]),
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_bound_by, "library_ms": None},
+         "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
         # library: torch.sum over the int32 view (K4), the PyTorch row
         # gather table[ids].sum() (K5)
         {"name": "dma_contig", "route": "cuda",

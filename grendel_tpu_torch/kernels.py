@@ -6,7 +6,8 @@ into its own shared library with a plain C interface and loaded with
 checkout only, into ``_build/`` (listed in ``.gitignore``); the library
 name carries a hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is reused. :func:`build` compiles several
-sources at once, one ``nvcc`` process each.
+sources at once, one ``nvcc`` process each. :func:`cold_ms` is the
+timing that chip_smoke.py and scripts/time_kernels.py report.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines that have no ``nvcc``.
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -38,8 +40,13 @@ _c_int, _c_i64, _ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 SIGNATURES = {
     "scan": {
         "gts_scan_tile_elems": (_c_int, []),
-        "gts_scan_i32": (_c_int, [ctypes.POINTER(_ptr), ctypes.POINTER(_ptr),
-                                  _c_int, _c_i64, _ptr, _ptr]),
+        "gts_scan_i32": (_c_int, [
+            ctypes.POINTER(_ptr), ctypes.POINTER(_ptr),  # ins outs
+            _c_int, _c_i64,                  # n_channels m
+            _ptr, _ptr,                      # status counter
+            ctypes.c_uint32, ctypes.c_uint32,  # ticket_base epoch
+            _ptr,                            # stream
+        ]),
     },
     "rasterize_fwd": {
         "gts_rasterize_fwd": (_c_int, [
@@ -87,8 +94,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:
@@ -104,7 +111,8 @@ def build(names=SOURCES) -> dict:
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
@@ -142,3 +150,34 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+# a spin of about half a millisecond on the card before a timed launch
+SPIN_CYCLES = 1_000_000
+
+
+def cold_ms(fn, reps: int, flush, spin: bool = False) -> float:
+    """Median ms of one call of ``fn`` over ``reps`` calls, from CUDA
+    events around each call, each after zeroing ``flush`` (a CUDA buffer
+    larger than the 50 MB L2, so every call finds its inputs in device
+    memory). The events also count any time the card waits for the host
+    to reach the launch. With ``spin`` the card first spins for longer
+    than the host takes to enqueue the call, so that the events read the
+    device's time alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)

@@ -25,6 +25,12 @@ from .. import kernels
 from .rasterize_torch import rasterize_slots, rasterize_slots_bwd, tile_spans
 
 MAX_PIXELS = 1024     # one thread per pixel of a slot
+# csrc/rasterize_bwd.cu: the backward's warps each walk a patch of 32 lanes
+# (so a slot's pixel count must be a multiple of 32), and add each
+# Gaussian's 9 sums into a 12-float row (48 bytes: two 16-byte atomics and
+# one scalar)
+BWD_WARP = 32
+BWD_ROW = 12
 
 
 def _check_inputs(means2d, conics, colors, opacities, gauss_ids, lo, hi,
@@ -86,13 +92,13 @@ def _blend_vjp(means2d, conics, colors, opacities, gauss_ids, lo, hi,
             means2d, conics, colors, opacities, gauss_ids, None, slot_px0,
             slot_py0, tile_w, tile_h, max_per_tile, tile_lo=lo, tile_hi=hi,
             c_total=c_total, final_t=final_t, g=g, g_t=g_t)
+    if (tile_w * tile_h) % BWD_WARP:
+        raise ValueError(f"tile {tile_w}x{tile_h}: the backward kernel takes "
+                         f"a multiple of {BWD_WARP} pixels")
     f32, i32 = _check_inputs(means2d, conics, colors, opacities, gauss_ids,
                              lo, hi, slot_px0, slot_py0, tile_w, tile_h)
     dev, t_slots, m = means2d.device, lo.shape[0], means2d.shape[0]
     p = tile_w * tile_h
-    if p % 32:
-        raise ValueError(f"tile of {p} pixels: the backward kernel takes a "
-                         "multiple of 32 (whole warps)")
     per_pixel = [x.to(torch.float32).contiguous()
                  for x in (c_total, final_t, g, g_t)]
     for x, shape in zip(per_pixel, ((t_slots, p, 3), (t_slots, p),
@@ -100,7 +106,7 @@ def _blend_vjp(means2d, conics, colors, opacities, gauss_ids, lo, hi,
         if x.shape != shape or x.device != dev:
             raise ValueError(f"forward outputs and cotangents must be "
                              f"{shape} on {dev}, got {tuple(x.shape)}")
-    d_all = torch.zeros(m, 9, dtype=torch.float32, device=dev)
+    d_all = torch.zeros(m, BWD_ROW, dtype=torch.float32, device=dev)
     lib = kernels.load("rasterize_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -111,6 +117,12 @@ def _blend_vjp(means2d, conics, colors, opacities, gauss_ids, lo, hi,
             *[x.data_ptr() for x in per_pixel], d_all.data_ptr(), stream),
             "backward blend kernel")
     rasterize_slots_vjp.launches += 1
+    return split_grads(d_all)
+
+
+def split_grads(d_all):
+    """(d_means2d (M, 2), d_conics (M, 3), d_colors (M, 3), d_opacities
+    (M,)) from the kernel's (M, 12) rows: columns 0-8, 9-11 padding."""
     return d_all[:, 0:2], d_all[:, 2:5], d_all[:, 5:8], d_all[:, 8]
 
 

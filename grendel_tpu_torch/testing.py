@@ -157,6 +157,50 @@ def garden_render_config(scene: Scene):
     return cfg, n_isect, n_kept
 
 
+class BlendInputs(NamedTuple):
+    """The blend's inputs as ``render_batch`` builds them for a batch of
+    cameras: ``args`` and ``kw`` for ``rasterize_slots_fwd`` (and, with the
+    forward's outputs and cotangents added to ``kw``, its VJP), and the
+    number of projected splats (B * capacity), the length of the entry
+    counts the tile-list build scans."""
+
+    args: tuple
+    kw: dict
+    n_splats: int
+
+
+def garden_blend_inputs(params: GaussianParams, alive, scene: Scene,
+                        cfg: RenderConfig) -> BlendInputs:
+    """The garden's blend inputs for all of ``scene.cameras`` at ``cfg``,
+    through the same projection, camera-blocked tile lists and compaction
+    as ``engine.render.render_batch``."""
+    from .engine.render import _slot_origins
+    from .ops.isect import compact_entries_blocked, isect_tile_rows_blocked
+    from .ops.projection import ProjectedSplats, project_gaussians_batched
+
+    dev = alive.device
+    bsz = len(scene.cameras)
+    cams = batch_camera_arrays(scene.cameras, dev)
+    act = activated(params)
+    splats = project_gaussians_batched(act.means3d, act.scales, act.quats,
+                                       act.opacities, act.sh, alive, cams,
+                                       scene.img_h, scene.img_w,
+                                       scene.sh_degree)
+    n = splats.means2d.shape[0] * splats.means2d.shape[1]
+    flat = ProjectedSplats(*(x.reshape((n,) + x.shape[2:]) for x in splats))
+    isect = isect_tile_rows_blocked(
+        flat.means2d, flat.radii, flat.depths, bsz, cfg.tile_w, cfg.tile_h,
+        cfg.tiles_x, cfg.tiles_y, bsz * cfg.isect_capacity,
+        opacities=flat.opacities)
+    ids, lo, hi = compact_entries_blocked(
+        isect.gauss_ids, isect.tile_lo, isect.tile_hi, bsz, cfg.num_tiles,
+        cfg.isect_capacity, cfg.blend_cap)
+    px0, py0 = _slot_origins(bsz * cfg.num_tiles, cfg, dev)
+    args = (flat.means2d, flat.conics, flat.colors, flat.opacities, ids,
+            None, px0, py0, cfg.tile_w, cfg.tile_h, cfg.max_per_tile)
+    return BlendInputs(args, dict(tile_lo=lo, tile_hi=hi), n)
+
+
 class Training(NamedTuple):
     """Everything one training step takes, besides the state."""
 
