@@ -19,8 +19,10 @@ Phases, each of which fails the run:
      random cotangents: every output finite, and max |K2 - plain| <=
      1e-4 max |plain| for each (the slack covers the order of the float
      atomics); both again on a saturating scene (opacity 0.999, 16x16
-     tiles) and on a small scene at 32x8, 64x4 and 128x2 tiles, where K2
-     walks 2 or 1 pixels a thread on other warp patches;
+     tiles) and on a small scene at 32x8, 64x4 and 128x2 tiles, where
+     both walk 2 or 1 pixels a thread on other warp patches; K1 alone on
+     12x10 tiles (120 pixels, not a multiple of 32, which K2 refuses),
+     where it walks one pixel a thread without the patch reject;
   5. the render path at full width: the garden-scale model (200,000 live
      Gaussians in a capacity of 262,144, SH 3) saved to PLY, loaded on the
      card and rendered by render_batch for 2 cameras at 1296x840 with
@@ -49,7 +51,8 @@ Phases, each of which fails the run:
      cotangents);
   8. the DMA microbenchmark's kernels: K4 and K5 bit-equal to their plain
      versions at an odd chunk count (row widths 16 and 128, 0 and 24
-     arithmetic rounds); then the microbenchmark itself at both row
+     arithmetic rounds; ids -1 and past the table among K5's, which
+     gather rows of zeros); then the microbenchmark itself at both row
      widths, which checks its own default sizes the same way before it
      times them, and whose launch counters must show K4 and K5;
   9. timings: render_batch and train_step (host clock, median of 20 after
@@ -58,9 +61,9 @@ Phases, each of which fails the run:
      each kernel, its plain version and the library call (CUDA events,
      with the L2 cache flushed before each launch), beside the least time
      the card could take; each kernel also on the device's clock alone
-     (``device_ms``: the host's time to reach the launch hidden); K2 also
-     on the loop step's inputs, K3 per shape with its wrapper's host time
-     per call.
+     (``device_ms``: the host's time to reach the launch hidden); K1 and
+     K2 also on the loop step's inputs, K3 per shape with its wrapper's
+     host time per call.
 
 ``--save-k2 DIR`` also saves K2's inputs on the garden and on the loop's
 last step for grendel_tpu_torch/scripts/time_kernels.py. Prints one
@@ -251,16 +254,11 @@ def rel_err(got, want):
                                                  1e-30)
 
 
-def blend_check(what, blend_in, blend_kw, g, g_t):
-    """K1 and K2 against their plain versions on one set of tile lists: K1
-    within K1_TOL on colors and final_t; K2 on the cotangents ``g`` and
-    ``g_t`` finite and within K2_REL_TOL of each output's largest value.
-    Returns K1's outputs, K2's keyword arguments and each kernel's max abs
-    error."""
-    from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_fwd,
-                                                      rasterize_slots_vjp)
-    from grendel_tpu_torch.ops.rasterize_torch import (rasterize_slots,
-                                                       rasterize_slots_bwd)
+def k1_check(what, blend_in, blend_kw):
+    """K1 against its plain version on one set of tile lists, within K1_TOL
+    on colors and final_t. Returns K1's outputs and its max abs error."""
+    from grendel_tpu_torch.ops.rasterize_cuda import rasterize_slots_fwd
+    from grendel_tpu_torch.ops.rasterize_torch import rasterize_slots
 
     col_k, t_k = rasterize_slots_fwd(*blend_in, **blend_kw)
     col_p, t_p = rasterize_slots(*blend_in, **blend_kw)
@@ -273,7 +271,19 @@ def blend_check(what, blend_in, blend_kw, g, g_t):
           f"{t_k.shape[0]} slots x {t_k.shape[1]} px (tol {K1_TOL})")
     require(k1_err <= K1_TOL,
             f"K1 differs from its plain version ({what}): {k1_err}")
+    return col_k, t_k, k1_err
 
+
+def blend_check(what, blend_in, blend_kw, g, g_t):
+    """K1 and K2 against their plain versions on one set of tile lists: K1
+    within K1_TOL on colors and final_t; K2 on the cotangents ``g`` and
+    ``g_t`` finite and within K2_REL_TOL of each output's largest value.
+    Returns K1's outputs, K2's keyword arguments and each kernel's max abs
+    error."""
+    from grendel_tpu_torch.ops.rasterize_cuda import rasterize_slots_vjp
+    from grendel_tpu_torch.ops.rasterize_torch import rasterize_slots_bwd
+
+    col_k, t_k, k1_err = k1_check(what, blend_in, blend_kw)
     bwd_kw = dict(blend_kw, c_total=col_k, final_t=t_k, g=g, g_t=g_t)
     d_k = rasterize_slots_vjp(*blend_in, **bwd_kw)
     d_p = rasterize_slots_bwd(*blend_in, **bwd_kw)
@@ -606,9 +616,10 @@ def loop_path(dev, tag, kernels_of, scene_kw, model_path,
 
 def dma_check(dev):
     """Phase 8, first half: K4 and K5 bit-equal to their plain versions at
-    an odd chunk count, at both row widths and 0 and DMA_VPU_ITERS rounds
-    (the microbenchmark checks its own default sizes in phase 8's second
-    half). Returns each kernel's max abs error."""
+    an odd chunk count, at both row widths and 0 and DMA_VPU_ITERS rounds,
+    with some of K5's ids out of range (-1, the table's length and 2^31 -
+    1: rows of zeros). The microbenchmark checks its own default sizes in
+    phase 8's second half. Returns each kernel's max abs error."""
     from grendel_tpu_torch.ops import dma_bench as D
     from grendel_tpu_torch.scripts import microbench_dma as M
 
@@ -616,10 +627,15 @@ def dma_check(dev):
     for width in D.ROW_WIDTHS:
         table, ids, src = M.make_inputs(DMA_N, DMA_ODD_CHUNKS * 128, width,
                                         dev, seed=width)
+        ids[::97] = -1
+        ids[5::131] = table.shape[0]
+        ids[7::211] = 2 ** 31 - 1
         for k, e in M.check_checksums(table, ids, src, DMA_VPU_ITERS).items():
             err[k] = max(err[k], e)
     print(f"# K4 and K5: checksums bit-equal to plain at {DMA_ODD_CHUNKS} "
-          f"chunks (W 16 and 128, vpu_iters 0 and {DMA_VPU_ITERS})")
+          f"chunks (W 16 and 128, vpu_iters 0 and {DMA_VPU_ITERS}; "
+          f"{int((ids < 0).sum() + (ids >= DMA_N).sum())} of K5's ids out "
+          f"of range)")
     return err
 
 
@@ -825,6 +841,11 @@ def main(argv=None):
             require(float(t_s.min()) < 2e-4, "the saturating scene did not "
                     f"saturate: min final_t {float(t_s.min())}")
         k1_err, k2_err = max(k1_err, s_k1_err), max(k2_err, s_k2_err)
+    # K1 alone on a tile whose pixel count (120) is not a multiple of 32:
+    # K2 refuses it, and K1 walks one pixel a thread without the reject
+    s_in, s_kw = small_blend_inputs(dev, tile_w=12, tile_h=10, opacity=None)
+    k1_err = max(k1_err, k1_check("a small scene, 12x10 tiles", s_in,
+                                  s_kw)[2])
 
     stamp(t_start, "K1 and K2 checked")
 
@@ -1030,17 +1051,26 @@ def main(argv=None):
           f"(device alone {k2_dev_ms:.4f} ms), plain {k2_plain_ms:.2f} ms, "
           f"bound {k2_bound:.4f} ms "
           f"({k2_bound_by}) {tag}")
-    # K2 on the inputs of the loop's last step: a trained scene blends far
-    # more of its walked pairs than the random garden
+    # K1 and K2 on the inputs of the loop's last step: a trained scene
+    # blends far more of its walked pairs than the random garden
     (m2d, con, col, op, sids, slo, shi, spx0, spy0, stw, sth, smpt, sc, sft,
      sg, sgt) = step_k2_in
     step_in = (m2d, con, col, op, sids, None, spx0, spy0, stw, sth, smpt)
-    step_kw = dict(tile_lo=slo, tile_hi=shi, c_total=sc, final_t=sft, g=sg,
-                   g_t=sgt)
-    k2_step_ms = timer.ms(lambda: k2(*step_in, **step_kw), 20)
-    k2_step_dev_ms = timer.device_ms(lambda: k2(*step_in, **step_kw), 20)
+    step_fwd_kw = dict(tile_lo=slo, tile_hi=shi)
+    step_kw = dict(step_fwd_kw, c_total=sc, final_t=sft, g=sg, g_t=sgt)
     s_pairs, s_blended = walked_pairs(m2d, con, op, sids, slo, shi, spx0,
                                       spy0, stw, sth, smpt)
+    k1_step_ms = timer.ms(lambda: k1(*step_in, **step_fwd_kw), 20)
+    k1_step_dev_ms = timer.device_ms(lambda: k1(*step_in, **step_fwd_kw), 20)
+    s1_bytes = (m2d.shape[0] * 9 * 4 + sids.numel() * 4 + 4 * slo.numel() * 4
+                + sft.numel() * 4 * 4)
+    s1_bound = max(1e3 * s1_bytes / HBM_BYTES_PER_S,
+                   1e3 * K1_OPS_PER_PAIR * s_pairs / FP32_OPS_PER_S)
+    print(f"# K1 on a loop step ({sft.shape[0]} slots, {m2d.shape[0]} "
+          f"splats): {s_pairs} pairs walked; {k1_step_ms:.4f} ms (device "
+          f"alone {k1_step_dev_ms:.4f} ms), bound {s1_bound:.4f} ms {tag}")
+    k2_step_ms = timer.ms(lambda: k2(*step_in, **step_kw), 20)
+    k2_step_dev_ms = timer.device_ms(lambda: k2(*step_in, **step_kw), 20)
     s_bytes = (m2d.shape[0] * 18 * 4 + sids.numel() * 4 + 4 * slo.numel() * 4
                + sft.numel() * 8 * 4)
     s_ops = K1_OPS_PER_PAIR * s_pairs + K2_OPS_PER_BLENDED * s_blended

@@ -42,7 +42,9 @@
 //     every slot of a multiple of 32 pixels runs. Before walking an entry the
 //     warp rejects it when the entry's ellipse {o exp(power) >= 1/255},
 //     widened by 5%, misses the patch's pixel box; the margin keeps the
-//     reject conservative, so no pixel skips an entry it would blend.
+//     reject conservative, so no pixel skips an entry it would blend. The
+//     shape rule, the reject and the stop rule's constants are K1's too
+//     (blend_common.cuh).
 //   * The 9 per-warp sums take a transposed butterfly: a reduce-scatter of
 //     8 values over lanes (4 + 2 + 1 shuffles, then 2 to finish) and one
 //     5-shuffle sum for the ninth, 14 shuffles instead of 45. The nine
@@ -70,14 +72,16 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr float kAlphaClamp = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using gts_blend::kAlphaClamp;
+using gts_blend::kAlphaMin;
+using gts_blend::kMaxPixels;
+using gts_blend::kTEps;
 constexpr int kGrads = 9;   // d_x d_y d_a d_b d_c d_r d_g d_b d_o
 constexpr int kRow = 12;    // floats per Gaussian in d_out
-constexpr int kMaxPixels = 1024;
 constexpr int kBatch = 128;  // entries gathered into shared memory at once
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -220,23 +224,7 @@ rasterize_bwd_kernel(const float* __restrict__ means2d,
         s_bl[i] = colors[3 * g + 2];
         s_o[i] = o;
         s_id[i] = id;
-        // A pixel blends only where o exp(power) >= 1/255, i.e. where
-        // q = a dx^2 + 2b dx dy + c dy^2 <= L = 2 ln(255 o): an ellipse
-        // with half extents sqrt(L c / det) and sqrt(L a / det). o < 1/255
-        // (or a NaN o) never blends, as exp(power) <= 1. A nearly
-        // degenerate conic is never rejected, nor is a NaN mean or conic:
-        // every comparison with a NaN extent or mean is false.
-        if (o >= kAlphaMin) {
-          const float det = a * c - b * b;
-          if (a > 0.0f && c > 0.0f && det > 1e-3f * a * c) {
-            const float l = fmaxf(2.0f * logf(255.0f * o), 0.0f) * 1.05f +
-                            1e-3f;
-            rx = sqrtf(l * c / det) + 1e-2f;
-            ry = sqrtf(l * a / det) + 1e-2f;
-          } else {
-            rx = ry = CUDART_INF_F;
-          }
-        }
+        gts_blend::blend_extent(a, b, c, o, &rx, &ry);
       } else {
         s_x[i] = s_y[i] = s_a[i] = s_b[i] = s_c[i] = 0.0f;
         s_r[i] = s_g[i] = s_bl[i] = 0.0f;
@@ -258,8 +246,8 @@ rasterize_bwd_kernel(const float* __restrict__ means2d,
         for (int q = 0; q < kGrads; ++q) v[q] = 0.0f;
         bool blended = false;
         const float mx = s_x[j], my = s_y[j], rx = s_rx[j], ry = s_ry[j];
-        const bool off_patch = mx + rx < box_x0 || mx - rx > box_x1 ||
-                               my + ry < box_y0 || my - ry > box_y1;
+        const bool off_patch = gts_blend::misses_box(
+            mx, my, rx, ry, box_x0, box_y0, box_x1, box_y1);
         if (!off_patch) {  // warp-uniform
 #pragma unroll
           for (int k = 0; k < kPpt; ++k) {
@@ -373,25 +361,6 @@ int launch(const void* means2d, const void* conics, const void* colors,
   return (int)cudaGetLastError();
 }
 
-// The warp's patch and pixels per thread for a slot of tile_w x tile_h:
-// the first of these that tiles it. {ppt, patch_w}; the patch is
-// patch_w x 32/patch_w*ppt pixels.
-struct Shape {
-  int ppt, patch_w;
-};
-constexpr Shape kShapes[] = {{4, 8}, {2, 8},  {1, 8}, {1, 16},
-                             {1, 32}, {1, 4}, {1, 2}, {1, 1}};
-
-bool pick_shape(int tile_w, int tile_h, Shape* out) {
-  for (const Shape& s : kShapes) {
-    if (tile_w % s.patch_w == 0 && tile_h % (32 / s.patch_w * s.ppt) == 0) {
-      *out = s;
-      return true;
-    }
-  }
-  return false;
-}
-
 }  // namespace
 
 extern "C" {
@@ -412,9 +381,9 @@ int gts_rasterize_bwd(const void* means2d, const void* conics,
                       int tile_h, int max_per_tile, const void* c_total,
                       const void* final_t, const void* g_colors,
                       const void* g_t, void* d_out, void* stream) {
-  Shape shape;
+  gts_blend::Shape shape;
   if (tile_w < 1 || tile_h < 1 || tile_w * tile_h > kMaxPixels ||
-      !pick_shape(tile_w, tile_h, &shape) || n_slots < 0 ||
+      !gts_blend::pick_shape(tile_w, tile_h, &shape) || n_slots < 0 ||
       max_per_tile < 0 || n_gauss < 0 || n_entries < 0 ||
       (reinterpret_cast<uintptr_t>(d_out) & 15) != 0) {
     return (int)cudaErrorInvalidValue;

@@ -93,7 +93,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers of csrc/ (shared by the sources that include them) count
+    # as part of every source
+    src = b"".join(path.read_bytes() for path in [CSRC / f"{name}.cu"]
+                   + sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

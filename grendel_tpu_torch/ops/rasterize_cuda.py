@@ -24,7 +24,7 @@ import torch
 from .. import kernels
 from .rasterize_torch import rasterize_slots, rasterize_slots_bwd, tile_spans
 
-MAX_PIXELS = 1024     # one thread per pixel of a slot
+MAX_PIXELS = 1024     # pixels of a slot the blend kernels take
 # csrc/rasterize_bwd.cu: the backward's warps each walk a patch of 32 lanes
 # (so a slot's pixel count must be a multiple of 32), and add each
 # Gaussian's 9 sums into a 12-float row (48 bytes: two 16-byte atomics and
@@ -35,17 +35,20 @@ BWD_ROW = 12
 
 def _check_inputs(means2d, conics, colors, opacities, gauss_ids, lo, hi,
                   slot_px0, slot_py0, tile_w, tile_h):
-    """Contiguous f32 splats and i32 index arrays for a kernel launch."""
-    dev = means2d.device
-    if dev.type != "cuda":
-        raise ValueError(f"no blend kernel for device {dev}")
+    """Contiguous f32 splats and i32 index arrays for a kernel launch;
+    ``means2d`` 8-byte aligned (K1 copies a mean in one 8-byte piece)."""
     p = tile_w * tile_h
     if not 1 <= p <= MAX_PIXELS:
         raise ValueError(f"tile of {p} pixels: the kernel takes 1..{MAX_PIXELS}")
+    dev = means2d.device
+    if dev.type != "cuda":
+        raise ValueError(f"no blend kernel for device {dev}")
     t_slots = lo.shape[0]
     m = means2d.shape[0]
     f32 = [x.to(torch.float32).contiguous()
            for x in (means2d, conics, colors, opacities)]
+    if f32[0].data_ptr() % 8:
+        f32[0] = f32[0].clone()
     i32 = [x.to(torch.int32).contiguous()
            for x in (gauss_ids, lo, hi, slot_px0, slot_py0)]
     for x in f32 + i32:

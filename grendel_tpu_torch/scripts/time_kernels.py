@@ -1,4 +1,4 @@
-"""Time K2 and K3 of whichever tree of the port is on the path.
+"""Time K1, K2, K3 and K5 of whichever tree of the port is on the path.
 
     python3 chip_smoke.py --save-k2 output
     PYTHONPATH=<tree> python3 grendel_tpu_torch/scripts/time_kernels.py \\
@@ -8,12 +8,17 @@ Each file holds the arguments of one call of K2
 (``rasterize_cuda._blend_vjp``: the splats, the tile lists, the forward's
 outputs and the cotangents): on the garden with random cotangents, and
 on the training loop's last step with the loss's. The script calls only
-the public wrappers ``rasterize_slots_vjp`` and ``cumsum_i32_multi`` of the
+the public wrappers ``rasterize_slots_fwd``, ``rasterize_slots_vjp``,
+``cumsum_i32_multi`` and ``scattered_checksum`` of the
 ``grendel_tpu_torch`` the path gives it, so that two trees of the port (a
 parent and a change) can be timed on the same inputs on one card, one
-after the other. It times K2 on each saved call and K3 on random
-channels at the garden's two scan shapes (``--k3`` C,M pairs) beside one
-``torch.cumsum`` call, and prints the gradients' checksum. Times are
+after the other. It times K1 on each saved call's forward inputs (the
+file's first 12 fields) and K2 on the whole call, with checksums of
+K1's outputs and of the gradients; K3 on random channels at the
+garden's two scan shapes (``--k3`` C,M pairs) beside one
+``torch.cumsum`` call; and K5 on the DMA microbenchmark's default inputs
+from its seed (``microbench_dma.make_inputs``, 1,048,576 ids into a
+table of 262,144 rows) at both row widths, no arithmetic. Times are
 medians of CUDA events around single launches with the L2 flushed before
 each, on two clocks: as the card sees the call, which counts any wait for
 the host to reach the launch, and the device's time alone. The timer is
@@ -39,13 +44,16 @@ def _cold_ms():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("k2_inputs", nargs="+")
+    ap.add_argument("k2_inputs", nargs="*")
     ap.add_argument("--k3", nargs="*", default=["1,524288", "4,1179648"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels.py needs a CUDA card")
-    from grendel_tpu_torch.ops.rasterize_cuda import rasterize_slots_vjp
+    from grendel_tpu_torch.ops.dma_bench import ROW_WIDTHS, scattered_checksum
+    from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_fwd,
+                                                      rasterize_slots_vjp)
     from grendel_tpu_torch.ops.scan_cuda import cumsum_i32_multi
+    from grendel_tpu_torch.scripts.microbench_dma import make_inputs
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -61,6 +69,14 @@ def main(argv=None) -> int:
     for path in args.k2_inputs:
         (m2d, con, col, op, ids, lo, hi, px0, py0, tw, th, mpt, c_total,
          final_t, g, g_t) = torch.load(path, map_location="cuda")
+
+        def k1():
+            return rasterize_slots_fwd(m2d, con, col, op, ids, None, px0, py0,
+                                       tw, th, mpt, tile_lo=lo, tile_hi=hi)
+
+        checksum = sum(float(x.abs().sum()) for x in k1())
+        print(f"# K1 on {path} ({final_t.shape[0]} slots, {m2d.shape[0]} "
+              f"splats): {clocks(k1, 20)}, sum |out| {checksum:.6e} [{card}]")
 
         def k2():
             return rasterize_slots_vjp(
@@ -83,6 +99,12 @@ def main(argv=None) -> int:
         print(f"# K3 C={c} M={m}: {clocks(lambda: cumsum_i32_multi(xs), 50)}"
               f", torch.cumsum ({'the channel' if c == 1 else 'stacked'}) "
               f"{clocks(lib, 50)} [{card}]")
+    for width in ROW_WIDTHS:
+        table, ids, _ = make_inputs(262_144, 1_048_576, width, "cuda", seed=0)
+        checksum = int(scattered_checksum(table, ids, 0).long().sum())
+        print(f"# K5 W={width} rows={ids.shape[0]}: "
+              f"{clocks(lambda: scattered_checksum(table, ids, 0), 20)}, "
+              f"checksum sum {checksum} [{card}]")
     return 0
 
 

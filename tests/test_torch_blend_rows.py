@@ -1,13 +1,16 @@
-"""K2's wrapper logic that runs without a card: the (M, 12) gradient rows
-the kernel writes are sliced back into the four gradients, and off the CPU
-the wrapper refuses a tile its kernel does not take before it launches,
-and passes on every tile of a multiple of 32 pixels, narrow ones too."""
+"""K1's and K2's wrapper logic that runs without a card: the (M, 12)
+gradient rows K2 writes are sliced back into the four gradients, and off
+the CPU each wrapper refuses a tile its kernel does not take before it
+launches, and passes on every tile its kernel takes: K2 every multiple of
+32 pixels, narrow ones too; K1 every tile of 1 to 1024 pixels."""
 
 import numpy as np
 import pytest
 import torch
 
 from grendel_tpu_torch.ops.rasterize_cuda import (BWD_ROW, BWD_WARP,
+                                                  MAX_PIXELS,
+                                                  rasterize_slots_fwd,
                                                   rasterize_slots_vjp,
                                                   split_grads)
 
@@ -48,3 +51,26 @@ def test_backward_wrapper_refuses_what_its_kernel_does_not_take():
                  (32, 1), (12, 16), (3, 32)):
         with pytest.raises(ValueError, match="no blend kernel"):
             vjp(*tile)
+
+
+def test_forward_wrapper_takes_every_tile_up_to_1024_pixels():
+    """Off the CPU, K1's wrapper raises for a tile of 0 or more than 1024
+    pixels before it looks at the device, and takes every tile in between
+    to the device check: multiples of 32 (a warp patch each) and the rest
+    (one pixel a thread), such as 12x10 and 8x2."""
+    z = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt, device="meta")
+    i32 = lambda *s: z(*s, dt=torch.int32)
+
+    def fwd(tile_w, tile_h):
+        rasterize_slots_fwd(z(4, 2), z(4, 3), z(4, 3), z(4), i32(8), i32(3),
+                            i32(2), i32(2), tile_w, tile_h, 64)
+
+    for tile in ((0, 16), (16, 0), (1025, 1), (41, 25), (32, 33)):
+        assert not 1 <= tile[0] * tile[1] <= MAX_PIXELS
+        with pytest.raises(ValueError, match=f"1..{MAX_PIXELS}"):
+            fwd(*tile)
+    for tile in ((32, 16), (16, 16), (32, 8), (64, 4), (128, 2), (12, 16),
+                 (12, 10), (8, 2), (1, 1), (5, 7), (31, 33), (32, 32),
+                 (1024, 1), (1, 1024)):
+        with pytest.raises(ValueError, match="no blend kernel"):
+            fwd(*tile)
