@@ -55,6 +55,20 @@ Phases, each of which fails the run:
      gather rows of zeros); then the microbenchmark itself at both row
      widths, which checks its own default sizes the same way before it
      times them, and whose launch counters must show K4 and K5;
+  10. the distributed step (parallel/sharded.py) at full width, on the
+     garden: DistributedTrainer on a one-rank NCCL group for 3 steps in
+     each distribution mode, through the real all-to-all and all-reduce
+     (K1, K2 and K3 in every step; step 1's loss within 1e-5 relative of
+     train_step's, its Adam moments within 1e-3 of each leaf's largest; a
+     render within 1e-5 of render_batch); then, since NCCL takes one rank
+     per GPU, the flat path of more ranks simulated in one process
+     (testing.simulate_distributed): D=2 split at the camera border, loss
+     within 1e-5 relative and gradients within 1e-4 of each leaf's largest
+     of train_step's; D=4 on an uneven division, its assembled render
+     within 1e-5 of render_batch, and K1 and K2 held to their plain
+     versions on each rank's flat tile lists; K3 bit-equal to its plain
+     version on every scan of both simulations; each with its device time
+     per step, launches and peak memory;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -105,6 +119,8 @@ TRAIN_STEPS = 10
 LOOP_SCENE = dict(width=1280, height=832, n_cams=10, llffhold=5,
                   n_init_points=100_000, seed=0)
 LOOP_ITERS, LOOP_CHECKPOINT, LOOP_RESUME_STEPS = 300, 200, 2
+# the distributed step: steps in each distribution mode at world size 1
+DIST_STEPS = 3
 # the DMA microbenchmark: scripts/microbench_dma.py's defaults, and an odd
 # chunk count for the checks
 DMA_N, DMA_CAP, DMA_VPU_ITERS, DMA_ODD_CHUNKS = 262_144, 1_048_576, 24, 1001
@@ -478,20 +494,32 @@ def capture_kernel_inputs(calls):
     return patched()
 
 
+def captured_blend_checks(what, calls_k2):
+    """K1 and K2 against their plain versions on the inputs each captured
+    K2 call was given (K2 on the loss's own cotangents; K1 run again must
+    give the forward the step used). Returns each kernel's max abs
+    error."""
+    k1_err = k2_err = 0.0
+    for i, (m2d, con, col, op, ids, lo, hi, px0, py0, tw, th, mpt, c_total,
+            final_t, g, g_t) in enumerate(calls_k2):
+        blend_in = (m2d, con, col, op, ids, None, px0, py0, tw, th, mpt)
+        col_k, t_k, _, e1, e2 = blend_check(
+            f"{what}, call {i + 1} of {len(calls_k2)}", blend_in,
+            dict(tile_lo=lo, tile_hi=hi), g, g_t)
+        require(torch.equal(col_k, c_total) and torch.equal(t_k, final_t),
+                f"K1 run again differs from the step's forward ({what})")
+        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    return k1_err, k2_err
+
+
 def loop_kernel_checks(calls):
     """K1, K2 and K3 against their plain versions on the inputs one loop
     step gave them. Returns each kernel's max abs error."""
     require(len(calls["K2"]) == 1 and calls["K3"],
             f"captured {len(calls['K2'])} K2 and {len(calls['K3'])} K3 "
             f"calls in one loop step")
-    (m2d, con, col, op, ids, lo, hi, px0, py0, tw, th, mpt, c_total, final_t,
-     g, g_t) = calls["K2"][0]
-    blend_in = (m2d, con, col, op, ids, None, px0, py0, tw, th, mpt)
-    col_k, t_k, _, k1_err, k2_err = blend_check(
-        "a loop step's tile lists", blend_in, dict(tile_lo=lo, tile_hi=hi),
-        g, g_t)
-    require(torch.equal(col_k, c_total) and torch.equal(t_k, final_t),
-            "K1 run again differs from the loop step's forward")
+    k1_err, k2_err = captured_blend_checks("a loop step's tile lists",
+                                           calls["K2"])
     k3_err = scan_check("a loop step", calls["K3"])
     print(f"# K3 scan (a loop step): bit-equal to plain in "
           f"{len(calls['K3'])} calls")
@@ -719,6 +747,248 @@ def dma_rows(dev, timer, tag, results):
               f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms ({nbytes} bytes: "
               f"{res['distinct_rows']} distinct rows) {tag}")
     return k4, k5
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def moments_rel_err(got, want, what):
+    """Each Adam moment leaf of ``got`` within MOMENT_REL_TOL of the
+    matching leaf's largest value in ``want``; returns the largest error."""
+    err = 0.0
+    for name, a, b in zip([f"mu.{k}" for k in want.params._fields]
+                          + [f"nu.{k}" for k in want.params._fields],
+                          got.adam.mu + got.adam.nu,
+                          want.adam.mu + want.adam.nu):
+        e = rel_err(a, b)
+        require(e <= MOMENT_REL_TOL, f"{what}: Adam moment {name} err / max "
+                f"{e:.3e} > {MOMENT_REL_TOL}")
+        err = max(err, e)
+    return err
+
+
+def distributed_path(dev, tag, kernels_of, cameras, tr, steps=DIST_STEPS):
+    """Phase 10: the distributed step (parallel/sharded.py).
+
+    (a) DistributedTrainer on a one-rank process group (NCCL on the card,
+    over a TCP store on 127.0.0.1) at the garden's full width, ``steps``
+    steps in each distribution mode through the real all-to-all and
+    all-reduce: K1, K2 and K3 launch in every step; step 1's loss equals
+    train_step's within 1e-5 relative and its Adam moments within
+    MOMENT_REL_TOL of each leaf's largest; one render equals render_batch
+    within 1e-5. (b) The flat path of D > 1 ranks, simulated in one
+    process (testing.simulate_distributed; NCCL takes one rank per GPU):
+    D=2 split at the camera border, whose loss equals train_step's within
+    1e-5 relative and its gradients within 1e-4 of each leaf's largest;
+    D=4 on an uneven division, whose assembled render equals render_batch
+    within 1e-5, and on whose flat tile lists K1 and K2 are held to their
+    plain versions; K3 is held to its plain version on every scan of both
+    simulations. Returns the printed numbers' record and each kernel's max
+    abs error."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from grendel_tpu_torch.engine.render import render_batch
+    from grendel_tpu_torch.parallel import comm
+    from grendel_tpu_torch.parallel.division import divide_rows, pack_gt_rows
+    from grendel_tpu_torch.parallel.sharded import (DistributedTrainer,
+                                                    ParallelConfig)
+    from grendel_tpu_torch.testing import simulate_distributed
+
+    rcfg, bsz = tr.cfg, tr.bsz
+    capacity = tr.state.alive.shape[0]
+    gt_np = list(tr.gt_u8.cpu().numpy())
+    one, one_m = tr.step(tr.state)
+    # the step's gradient, from the first Adam moment of a fresh state:
+    # mu = (1 - beta1) g / bsz
+    g_one = [mu / (1.0 - tr.lrs.beta1) * bsz for mu in one.adam.mu]
+    with torch.no_grad():
+        imgs_one, _, _ = render_batch(tr.state.params, tr.state.alive,
+                                      tr.cams, tr.sh_degree, rcfg, bg=tr.bg)
+    loss_one = float(one_m["loss"])
+    kw = dict(bsz=bsz, img_h=rcfg.img_h, img_w=rcfg.img_w,
+              tile_w=rcfg.tile_w, tile_h=rcfg.tile_h,
+              isect_capacity=bsz * rcfg.isect_capacity,
+              blend_capacity=bsz * rcfg.blend_cap,
+              max_per_tile=rcfg.max_per_tile)
+    record = {}
+
+    def gt_rows_of(pos, d_count, cfg):
+        return torch.as_tensor(pack_gt_rows(
+            cameras, pos, d_count, cfg.n_row_slots, cfg.tile_h, cfg.img_h,
+            cfg.img_w, gt_override=gt_np), device=dev)
+
+    # --- (a) the real collectives at world size 1 --------------------------
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    comm.init_group(dev, rank=0, world_size=1, store=store)
+    try:
+        for mode in ("sharded", "replicated"):
+            cfg = ParallelConfig(
+                n_devices=1, send_cap=bsz * capacity,
+                gaussians_distribution=mode == "sharded", **kw
+            ).resolved(capacity)
+            dt = DistributedTrainer(cfg, tr.sh_degree, tr.lambda_dssim,
+                                    tr.lrs, tr.xyz_sched)
+            pos = torch.tensor([0, cfg.total_rows], dtype=torch.int32,
+                               device=dev)
+            gt_rows = gt_rows_of(pos.cpu().numpy(), 1, cfg)[0]
+            state = dt.shard_state(tr.state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            losses = []
+            for i in range(steps):
+                for wrapper in kernels_of.values():
+                    wrapper.launches = 0
+                state, m = dt.step(state, tr.cams, gt_rows, pos, tr.bg)
+                torch.cuda.synchronize()
+                n = {name: w.launches for name, w in kernels_of.items()}
+                require(all(v > 0 for v in n.values()),
+                        f"distributed step {i + 1} ({mode}): a kernel did "
+                        f"not launch: {n}")
+                require(int(m["a2a_overflow"].sum()) == 0
+                        and int(m["num_isects"].max()) < cfg.isect_capacity,
+                        f"distributed step {i + 1} ({mode}) overflowed: "
+                        f"{m['telemetry'].tolist()}")
+                losses.append(float(m["loss"]))
+                print(f"# distributed step {i + 1} ({mode}, world size 1, "
+                      f"{dist.get_backend()}): loss {losses[-1]:.6f} "
+                      f"telemetry {m['telemetry'].tolist()} launches {n}")
+                if i == 0:
+                    loss_rel = abs(losses[0] / loss_one - 1.0)
+                    mom_err = moments_rel_err(state, one, f"distributed "
+                                              f"step 1 ({mode})")
+                    require(loss_rel <= 1e-5, f"distributed step 1 ({mode}) "
+                            f"loss {losses[0]} vs train_step {loss_one}")
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            require(all(torch.isfinite(p).all() for p in state.params),
+                    f"non-finite parameter after the {mode} steps")
+            imgs = dt.render(tr.state.params, tr.state.alive, tr.cams, pos,
+                             tr.bg)
+            render_err = float((imgs - imgs_one).abs().max())
+            require(render_err <= 1e-5, f"distributed render ({mode}) "
+                    f"differs from render_batch: {render_err}")
+            print(f"# distributed ({mode}, world size 1): step 1 loss "
+                  f"relative err vs train_step {loss_rel:.3e}, Adam moments "
+                  f"err / max {mom_err:.3e}; render max abs err vs "
+                  f"render_batch {render_err:.3e}; peak device memory "
+                  f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held "
+                  f"before {tag}")
+            holder = [state]
+
+            def one_step():
+                holder[0], _ = dt.step(holder[0], tr.cams, gt_rows, pos,
+                                       tr.bg)
+
+            print(f"# distributed step profile ({mode}, world size 1):")
+            dev_ms, rows = profile(one_step, 5)
+            per_kernel = kernel_launches(rows)
+            print(f"# distributed step ({mode}, world size 1) device time "
+                  f"per step: {dev_ms:.3f} ms; launches per step "
+                  f"{per_kernel}, {sum(r[1] for r in rows):.0f} in all {tag}")
+            record[mode] = dict(loss_rel=loss_rel, mom_err=mom_err,
+                                render_err=render_err, peak_gib=peak,
+                                dev_ms=dev_ms, launches=per_kernel)
+    finally:
+        comm.destroy_group()
+        del store
+
+    # --- (b) the flat path of D > 1 ranks, simulated ------------------------
+    tiles_y = ParallelConfig(n_devices=1, **kw).tiles_y
+    heavy = np.ones(bsz * tiles_y)
+    heavy[:tiles_y // 3] = 8.0             # camera 0's top rows cost more
+    cases = {2: dict(n_row_slots=tiles_y, pos=[0, tiles_y, 2 * tiles_y]),
+             4: dict(n_row_slots=2 * tiles_y, pos=None)}
+    sim_err = {}
+    for d_count, case in cases.items():
+        cfg = ParallelConfig(
+            n_devices=d_count, n_row_slots=case["n_row_slots"],
+            send_cap=bsz * capacity // d_count, **kw
+        ).resolved(capacity // d_count)
+        pos_np = (divide_rows(heavy, d_count, cfg.n_row_slots)
+                  if case["pos"] is None
+                  else np.array(case["pos"], np.int32))
+        pos = torch.as_tensor(pos_np, device=dev)
+        gt_rows = gt_rows_of(pos_np, d_count, cfg)
+
+        def sim():
+            return simulate_distributed(
+                tr.state.params, tr.state.alive, tr.cams, gt_rows, pos,
+                tr.bg, cfg, tr.sh_degree, tr.lambda_dssim)
+
+        calls = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for wrapper in kernels_of.values():
+            wrapper.launches = 0
+        with capture_kernel_inputs(calls):
+            out = sim()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        n = {name: w.launches for name, w in kernels_of.items()}
+        require(all(v > 0 for v in n.values()),
+                f"simulated D={d_count}: a kernel did not launch: {n}")
+        over = [int(a["a2a_overflow"]) for a in out.per_rank]
+        isects = [int(a["num_isects"]) for a in out.per_rank]
+        require(sum(over) == 0 and max(isects) < cfg.isect_capacity,
+                f"simulated D={d_count} overflowed: {over}, {isects}")
+        render_err = float((out.images - imgs_one).abs().max())
+        loss_rel = abs(float(out.loss) / loss_one - 1.0)
+        line = (f"# simulated D={d_count} (division {pos_np.tolist()}, "
+                f"{cfg.n_row_slots} row slots, send_cap {cfg.send_cap}): "
+                f"loss {float(out.loss):.6f} (train_step {loss_one:.6f}, "
+                f"relative err {loss_rel:.3e}), render max abs err vs "
+                f"render_batch {render_err:.3e}, demand "
+                f"{[int(a['a2a_demand']) for a in out.per_rank]}, entries "
+                f"{isects}, launches {n}")
+        require(render_err <= 1e-5, f"simulated D={d_count} render differs "
+                f"from render_batch: {render_err}")
+        if d_count == 2:
+            g_err = max(rel_err(a, b) for a, b in zip(out.grads, g_one))
+            line += f", gradients err / max {g_err:.3e}"
+            require(loss_rel <= 1e-5, f"simulated D=2 loss {float(out.loss)} "
+                    f"vs train_step {loss_one}")
+            require(g_err <= K2_REL_TOL, f"simulated D=2 gradients differ "
+                    f"from train_step's: {g_err}")
+        print(line)
+        # K3 on the flat row-span expansion's scans of every rank
+        require(calls["K3"], f"captured no K3 call at D={d_count}")
+        sim_err["K3"] = max(sim_err.get("K3", 0), scan_check(
+            f"the simulated D={d_count} step's flat lists", calls["K3"]))
+        print(f"# K3 scan (the simulated D={d_count} step): bit-equal to "
+              f"plain in {len(calls['K3'])} calls")
+        if d_count == 4:
+            require(len(calls["K2"]) == d_count,
+                    f"captured {len(calls['K2'])} K2 calls at D=4")
+            sim_err["K1"], sim_err["K2"] = captured_blend_checks(
+                "the simulated D=4 step's flat tile lists", calls["K2"])
+        calls.clear()
+        del out
+        print(f"# simulated D={d_count} step profile (forward and backward "
+              f"of every rank, no Adam):")
+        dev_ms, rows = profile(sim, 3)
+        record[f"D{d_count}"] = dict(loss_rel=loss_rel, render_err=render_err,
+                                    peak_gib=peak, dev_ms=dev_ms,
+                                    launches=kernel_launches(rows))
+        print(f"# simulated D={d_count} device time per step {dev_ms:.3f} "
+              f"ms, launches per step {record[f'D{d_count}']['launches']}, "
+              f"{sum(r[1] for r in rows):.0f} in all; peak device memory "
+              f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before "
+              f"{tag}")
+    return record, sim_err
+
+
+def kernel_launches(rows):
+    """Launches per call of K1, K2 and K3 in a profile's rows."""
+    return {k: sum(n for _, n, key in rows if name in key)
+            for k, name in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd"),
+                            ("K3", "scan"))}
 
 
 def main(argv=None):
@@ -956,9 +1226,7 @@ def main(argv=None):
           f"= {BSZ * 1e3 / step_ms:.1f} images/s {tag}")
     print("# train_step profile:")
     step_dev_ms, rows = profile(one_step, 5)
-    per_kernel = {k: sum(n for _, n, key in rows if name in key)
-                  for k, name in (("K1", "rasterize_fwd"),
-                                  ("K2", "rasterize_bwd"), ("K3", "scan"))}
+    per_kernel = kernel_launches(rows)
     print(f"# train_step device time per step: {step_dev_ms:.3f} ms (the "
           f"profiler's sum over its kernels, 5 steps); launches per step "
           f"{per_kernel} {tag}")
@@ -1012,6 +1280,15 @@ def main(argv=None):
     print(f"# train_step after phases 7 and 8: median "
           f"{statistics.median(walls):.3f} ms (min {min(walls):.3f}, max "
           f"{max(walls):.3f}) over 20 calls {tag}")
+
+    # --- 10. the distributed step ----------------------------------------
+    dist_record, dist_errs = distributed_path(dev, tag, kernels_of,
+                                              scene.cameras, tr)
+    print(f"# distributed step device time per step: "
+          + ", ".join(f"{k} {v['dev_ms']:.3f} ms" for k, v in
+                      dist_record.items())
+          + f"; train_step {step_dev_ms:.3f} ms {tag}")
+    stamp(t_start, "distributed step checked")
 
     # --- 9. kernel timings -------------------------------------------------
     timer = Timer()
@@ -1120,14 +1397,15 @@ def main(argv=None):
     # the host to reach the launch; device_ms: the device's time alone.
     # launches: K1-K3 over the host training loop's steps, K4 and K5 over
     # the microbenchmark's run; max_abs_err: the larger of the checks on
-    # the garden's inputs and on a loop step's (K1-K3), and of the
-    # microbenchmark's own check and the odd chunk count's (K4, K5)
+    # the garden's inputs, on a loop step's and on the simulated
+    # distributed steps' (K1-K3), and of the microbenchmark's own check and
+    # the odd chunk count's (K4, K5)
     kernels_line = {"kernels": [
         {"name": "rasterize_fwd", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:181",
          "launches": loop_launches["K1"],
-         "max_abs_err": max(k1_err, loop_errs["K1"]),
+         "max_abs_err": max(k1_err, loop_errs["K1"], dist_errs["K1"]),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
         # K3's times are per render_batch (a train_step builds its tile
@@ -1137,7 +1415,7 @@ def main(argv=None):
          "source": "grendel_tpu_torch/csrc/scan.cu",
          "replaces": "grendel_tpu/ops/scan_pallas.py:65",
          "launches": loop_launches["K3"],
-         "max_abs_err": max(k3_err, loop_errs["K3"]),
+         "max_abs_err": max(k3_err, loop_errs["K3"], dist_errs["K3"]),
          "ms": k3_row["ms"], "device_ms": k3_row["device_ms"],
          "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
@@ -1146,7 +1424,7 @@ def main(argv=None):
          "source": "grendel_tpu_torch/csrc/rasterize_bwd.cu",
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:262",
          "launches": loop_launches["K2"],
-         "max_abs_err": max(k2_err, loop_errs["K2"]),
+         "max_abs_err": max(k2_err, loop_errs["K2"], dist_errs["K2"]),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
         # library: torch.sum over the int32 view (K4), the PyTorch row

@@ -3,9 +3,12 @@
 A second package beside ``grendel_tpu/`` (the JAX reference), with the
 same module layout so each counterpart is easy to find. It imports
 ``torch`` and numpy, never ``jax`` or ``grendel_tpu``. Ported so
-far: the render path (projection -> tile lists -> front-to-back blend)
-and the single-GPU training step (``engine/train.py``: loss, backward,
-hand-rolled Adam, densify statistics). Its three kernels are hand-written
+far: the render path (projection -> tile lists -> front-to-back blend),
+the single-GPU training step (``engine/train.py``: loss, backward,
+hand-rolled Adam, densify statistics), the host loop on one GPU
+(``engine/trainer.py``) and the distributed step (``parallel/``: row
+division, the sparse all-to-all over torch.distributed, Gaussian and
+pixel sharding). Its three kernels are hand-written
 CUDA C++ for Hopper under ``csrc/``:
 
   ops/scan_cuda.py       K3, inclusive int32 prefix scan (csrc/scan.cu)

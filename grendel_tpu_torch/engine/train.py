@@ -3,16 +3,18 @@
 Counterpart of grendel_tpu/engine/train.py. One step renders ``bsz``
 cameras through one camera-blocked tile list and one blend (kernels K1
 and K3 on the card), sums their losses, backpropagates to the Gaussian
-parameters (the blend's backward is kernel K2 on the card), divides the
-gradients by bsz (unless lr_scale_mode == "accumu"), accumulates the
+parameters (the blend's backward is kernel K2 on the card), scales each
+Gaussian's gradients by its visibility count as grad_normalization_mode
+says (the JAX package's one-device step runs in replicated mode, which
+applies it), divides them by bsz (unless lr_scale_mode == "accumu"),
+accumulates the
 densification statistics from the screen-space position gradients, and
 applies one Adam step at the xyz LR the schedule gives for the current
 iteration.
 
 The step is a function of TrainState and returns a new one; the host
-loop around it (densify schedule, SH ramp, evaluation, capacity growth)
-is not ported yet. ``iteration`` stays a tensor on the state's device, so
-a step never reads a value back to the host.
+loop around it is engine/trainer.py. ``iteration`` stays a tensor on the
+state's device, so a step never reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -65,6 +67,28 @@ def train_state_init(params: GaussianParams, alive: torch.Tensor,
     )
 
 
+def normalize_grads_by_visibility(grads: GaussianParams, radii,
+                                  mode: str) -> GaussianParams:
+    """Scale each Gaussian's gradients by the number of batch views it is
+    visible in (radius > 0 in ``radii`` (B, N)): 1/count, count or count²
+    (the reference's --grad_normalization_mode, arguments/__init__.py:157).
+    The distributed step's replicated mode applies it too: every rank
+    projects the whole batch there, so the count needs no collective."""
+    if mode == "none":
+        return grads
+    vis = torch.sum(radii > 0, dim=0).to(torch.float32)
+    if mode == "divide_by_visible_count":
+        factor = 1.0 / torch.clamp(vis, min=1.0)
+    elif mode == "multiply_by_visible_count":
+        factor = vis
+    elif mode == "square_multiply_by_visible_count":
+        factor = vis * vis
+    else:
+        raise ValueError(f"unknown grad_normalization_mode {mode!r}")
+    return GaussianParams(*(g * factor.reshape((-1,) + (1,) * (g.dim() - 1))
+                            for g in grads))
+
+
 def train_step(
     state: TrainState,
     cams: CameraArrays,            # batched (bsz, ...) leaves
@@ -78,6 +102,7 @@ def train_step(
     xyz_sched: XyzLrSchedule,
     lr_scale_mode: str = "sqrt",
     lr_scale_loss: float = 1.0,
+    grad_normalization_mode: str = "none",
 ) -> Tuple[TrainState, dict]:
     """One training step. Returns (new_state, metrics)."""
     n = state.alive.shape[0]
@@ -91,16 +116,20 @@ def train_step(
     loss, per_cam = batch_loss(images, gt, lambda_dssim,
                                lr_scale_loss=lr_scale_loss)
     *grads, tap_grad = torch.autograd.grad(loss, leaves + [tap])
+    # the tap gradient stays raw: the densify statistics read it unscaled
+    grads = normalize_grads_by_visibility(GaussianParams(*grads),
+                                          splats.radii,
+                                          grad_normalization_mode)
 
     # param.grad /= bsz unless "accumu" (gradients accumulated, not averaged)
     if lr_scale_mode != "accumu":
-        grads = [g / bsz for g in grads]
+        grads = GaussianParams(*(g / bsz for g in grads))
 
     stats = accumulate_densify_stats(state.stats, tap_grad, splats.radii,
                                      render_cfg.img_w, render_cfg.img_h)
     xyz_lr = xyz_sched(state.iteration)
-    params, adam = adam_step(state.params, GaussianParams(*grads), state.adam,
-                             lrs, xyz_lr, state.alive)
+    params, adam = adam_step(state.params, grads, state.adam, lrs, xyz_lr,
+                             state.alive)
     new_state = TrainState(params=params, alive=state.alive, adam=adam,
                            stats=stats, iteration=state.iteration + bsz)
     metrics = {

@@ -32,11 +32,18 @@ training cameras; each step indexes both. With ``random_background`` the
 background comes from the trainer's own generator seeded with
 ``cfg.seed``; the JAX package draws it from a JAX key, so the two differ.
 
+Densification stops while the device's memory in use passes
+``densify_memory_limit_percentage`` of its total (the JAX loop's memory
+guard, the reference's ``check_memory_usage_and_adjust``); on the card the
+share is ``1 - free/total`` from ``torch.cuda.mem_get_info``, on the CPU
+there is none and the guard never trips. It is read only when a densify
+round is due.
+
 Not ported, being TPU workarounds or multi-device paths: the recompile
 generation tags, the blend-budget tuner (the render gets no post-cull
-budget), the trainer cache, the HBM ceiling, the memory guard,
-redistribution, whole-image division, local sampling, and host-side
-ground-truth row packing. The options that select one of them raise.
+budget), the trainer cache, the HBM ceiling, redistribution, whole-image
+division, local sampling, and host-side ground-truth row packing. The
+options that select one of them raise.
 """
 
 from __future__ import annotations
@@ -85,8 +92,6 @@ def check_ported(cfg: TrainConfig) -> None:
     not_ported = {
         "dist.local_sampling": cfg.dist.local_sampling,
         "dist.save_strategy_history": cfg.dist.save_strategy_history,
-        "dist.grad_normalization_mode":
-            cfg.dist.grad_normalization_mode != "none",
         "nsys_profile": cfg.nsys_profile,
         "log_memory_summary": cfg.log_memory_summary,
     }
@@ -269,7 +274,8 @@ class Trainer:
         return train_step(self.state, cams, gt_u8, bg, self.render_config(),
                           sh_degree, self.cfg.dist.bsz, o.lambda_dssim,
                           self.lrs, self.xyz_sched, o.lr_scale_mode,
-                          o.lr_scale_loss)
+                          o.lr_scale_loss,
+                          self.cfg.dist.grad_normalization_mode)
 
     # ------------------------------------------------------------------
 
@@ -358,7 +364,8 @@ class Trainer:
             if (not o.disable_auto_densification
                     and o.densify_from_iter < sched_it <= o.densify_until_iter
                     and check_update_at_this_iter(
-                        sched_it, bsz, o.densification_interval, 0)):
+                        sched_it, bsz, o.densification_interval, 0)
+                    and not self._memory_guard_tripped()):
                 self.timer.start("80 densify")
                 self._densify(it, sched_it)
                 self.timer.stop("80 densify")
@@ -428,6 +435,32 @@ class Trainer:
                   f"dropped={info.n_dropped} max_occ={occ:.2f}")
         if info.n_dropped > 0 or occ > o.capacity_growth_trigger:
             self._grow_capacity()
+
+    def _memory_fraction(self) -> Optional[float]:
+        """Share of the device's memory in use, or None where there is no
+        such share (the CPU).
+
+        ``1 - free/total`` counts every byte taken on the card: live
+        tensors, the caching allocator's reserved blocks, the CUDA context
+        and other processes. The JAX package's guard divides live
+        ``bytes_in_use`` by ``bytes_limit``, so blocks the allocator keeps
+        cached after a peak (an eval render) can stop densification here
+        where JAX's would not."""
+        if self.device.type != "cuda":
+            return None
+        free, total = torch.cuda.mem_get_info(self.device)
+        return 1.0 - free / total
+
+    def _memory_guard_tripped(self) -> bool:
+        """True, and logged, when the device's memory in use passes
+        ``densify_memory_limit_percentage``: densification stops."""
+        frac = self._memory_fraction()
+        limit = self.cfg.opt.densify_memory_limit_percentage
+        if frac is not None and frac > limit:
+            self._log(f"densification stopped: HBM at {frac:.0%} "
+                      f"(limit {limit:.0%})")
+            return True
+        return False
 
     def _log_memory(self, it: int):
         parts = []

@@ -250,6 +250,65 @@ def isect_tiles(means2d, radii, depths, tile_w: int, tile_h: int,
     )
 
 
+def isect_tile_rows(means2d, radii, depths, cam_ids, row_lo, row_hi,
+                    tile_w: int, tile_h: int, tiles_x: int, tiles_y: int,
+                    n_row_slots: int, capacity: int,
+                    opacities=None) -> TileIntersections:
+    """Per-tile entry lists of an owned span of global tile rows.
+
+    The distributed path's tile lists: the global row axis flattens
+    (camera, tile row) as ``cam * tiles_y + ty``, a device owns the rows
+    [row_lo, row_hi) (ints or 0-d tensors) and lists entries for its local
+    slots ``(global_row - row_lo) * tiles_x + tx``, at most
+    ``n_row_slots`` rows of them. The entries (M of them) come from any
+    mix of cameras, ``cam_ids`` naming each one's. The expansion is
+    :func:`isect_tiles`'s, with one more broadcast channel (the camera)."""
+    dev = depths.device
+    num_slots = n_row_slots * tiles_x
+
+    order = torch.sort(depths, stable=True).indices
+    mx, my, rad, rc_full, rect_r = _sorted_attrs(order, means2d, radii,
+                                                 opacities)
+    cam = cam_ids[order].to(I32)
+    x0, y0, spanx, spany = gaussian_tile_rect(
+        torch.stack([mx, my], -1), rad, tile_w, tile_h, tiles_x, tiles_y,
+        rect_r)
+    # clip each entry's rows to the owned span of its camera and to the
+    # row-slot buffer
+    first = row_lo - cam * tiles_y
+    ty_lo = torch.maximum(y0, first)
+    ty_hi = torch.minimum(torch.minimum(y0 + spany, row_hi - cam * tiles_y),
+                          first + n_row_slots)
+    counts = spanx * torch.clamp(ty_hi - ty_lo, min=0)
+    cum = cumsum_i32(counts)
+    total = cum[-1]
+
+    e = _arange(capacity, dev)
+    seg_starts = cum - counts
+    packed = x0 | (ty_lo << 10) | (spanx << 20)
+    cull_on = _cull_on(opacities, tile_w, tile_h, tiles_x, tiles_y)
+    chans = [seg_starts, packed, order.to(I32), cam]
+    if cull_on:
+        chans.append(_pack_cull(mx, my, rc_full))
+    bcast = _segment_broadcast_multi(chans, seg_starts, capacity)
+    startb, packedb, gid, camb = bcast[:4]
+    tx, ty = _unpack_entries(e, startb, packedb)
+    slot = (camb * tiles_y + ty - row_lo) * tiles_x + tx
+    valid = (e < total) & (slot >= 0) & (slot < num_slots)
+    if cull_on:
+        valid = valid & _corner_cull_keep(tx, ty, bcast[4], tile_w, tile_h)
+    slot = torch.where(valid, slot, torch.full_like(slot, num_slots)).to(I32)
+
+    slot_sorted, perm = torch.sort(slot, stable=True)
+    tile_offsets = _searchsorted(slot_sorted, num_slots + 1)
+    return TileIntersections(
+        gauss_ids=gid[perm],
+        tile_offsets=tile_offsets,
+        num_isects=total,
+        num_kept=tile_offsets[num_slots],
+    )
+
+
 def isect_tile_rows_blocked(means2d, radii, depths, n_cams: int,
                             tile_w: int, tile_h: int, tiles_x: int,
                             tiles_y: int, capacity: int,

@@ -1,0 +1,94 @@
+"""The distributed step's collectives over the default torch.distributed
+process group.
+
+The JAX package's step calls ``lax`` collectives inside ``shard_map``;
+this is their counterpart for one process per device:
+
+  * :func:`init_group`: NCCL for a ``cuda`` device, gloo for the CPU
+    (:func:`destroy_group` leaves it);
+  * :func:`all_to_all`: the sparse exchange, differentiable (its backward
+    is the same exchange of the gradient);
+  * :func:`all_reduce_sum`: one collective over a list of tensors, packed
+    into one flat buffer;
+  * :func:`all_gather`: every rank's tensor, stacked (the telemetry).
+
+Every rank must call these in the same order: gloo and NCCL match
+collectives by the order in which they are called.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+
+def init_group(device, rank: Optional[int] = None,
+               world_size: Optional[int] = None, store=None) -> None:
+    """Join the default process group: NCCL for a ``cuda`` device, gloo
+    for the CPU. Without ``store`` the rank, world size and rendezvous come
+    from the ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``
+    environment variables."""
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(torch.device(
+            "cuda", torch.cuda.current_device() if dev.index is None
+            else dev.index))
+    if store is not None:
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world_size)
+    else:
+        dist.init_process_group(backend, init_method="env://")
+
+
+def destroy_group() -> None:
+    """Leave the default process group."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _exchange(x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous())
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _exchange(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g)
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """Block ``x[s]`` of this rank goes to rank ``s``; block ``out[s]`` came
+    from rank ``s``. ``x`` has the world size as its leading axis (equal
+    splits). Differentiable in ``x``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x)
+    return _exchange(x)
+
+
+def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum over ranks of each tensor, through one collective on one
+    flat float32 buffer; each result keeps its tensor's shape and dtype."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat)
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[at:at + n].reshape(t.shape).to(t.dtype))
+        at += n
+    return out
+
+
+def all_gather(x: torch.Tensor) -> torch.Tensor:
+    """(world_size,) + x.shape: every rank's ``x``, in rank order."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.stack(parts)

@@ -9,8 +9,7 @@ repository root:
 
 The run goes to the card unless ``--device cpu`` is given. The multi-device
 flags of the JAX script (``--n_devices`` above 1, ``--local_sampling``,
-``--save_strategy_history``, ``--grad_normalization_mode``) raise "not
-ported yet".
+``--save_strategy_history``) raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -60,6 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_scale_loss", type=float, default=1.0)
     p.add_argument("--lr_scale_pos_and_scale", type=float, default=1.0)
     p.add_argument("--random_background", action="store_true")
+    p.add_argument("--densify_memory_limit_percentage", type=float,
+                   default=0.9)
     # the batch; the multi-device options raise
     p.add_argument("--bsz", type=int, default=1)
     p.add_argument("--n_devices", type=int, default=1)
@@ -130,7 +131,8 @@ def args_to_config(a):
               "densify_from_iter", "densify_until_iter",
               "densify_grad_threshold", "disable_auto_densification",
               "min_opacity", "lr_scale_mode", "lr_scale_loss",
-              "random_background", "lr_scale_pos_and_scale"):
+              "random_background", "densify_memory_limit_percentage",
+              "lr_scale_pos_and_scale"):
         setattr(cfg.opt, f, getattr(a, f))
     if a.tile:
         tw, th = (int(x) for x in a.tile.split("x"))

@@ -600,3 +600,142 @@ class StructuredSyntheticScene:
         dists = np.linalg.norm(centers - centers.mean(0), axis=-1)
         self.cameras_extent = float(dists.max() * 1.1)
         self.point_cloud = _structured_point_cloud(n_init_points, seed)
+
+
+# --------------------------------------------------------------------------
+# the distributed step, simulated in one process and run in gloo processes
+# --------------------------------------------------------------------------
+
+
+class SimulatedStep(NamedTuple):
+    """What :func:`simulate_distributed` returns."""
+
+    loss: torch.Tensor          # () the global loss
+    l1: torch.Tensor            # () summed over ranks
+    ssim: torch.Tensor
+    grads: GaussianParams       # d(loss)/d(params), the whole capacity
+    tap_grad: torch.Tensor      # (B, N, 2) d(loss)/d(means2d)
+    radii: torch.Tensor         # (B, N) int32
+    images: torch.Tensor        # (B, 3, H, W) assembled from the ranks' rows
+    per_rank: list              # each rank's aux (parallel/sharded.py _aux)
+
+
+def simulate_distributed(params: GaussianParams, alive, cams: CameraArrays,
+                         gt_rows_u8, division_pos, bg, cfg, sh_degree: int,
+                         lambda_dssim: float,
+                         lr_scale_loss: float = 1.0) -> SimulatedStep:
+    """The Gaussian-sharded forward and backward of ``cfg.n_devices`` ranks
+    in one process: each rank's slice is projected and packed
+    (``pack_for_exchange``), the buckets move from rank s to rank r by a
+    differentiable index (recv[r] = send[:, r], the all-to-all's effect),
+    each rank renders its rows and takes its partial loss, and one backward
+    runs over the sum of the partials. ``gt_rows_u8`` is (D, R, 3, tile_h,
+    W). Nothing in the package calls this: it runs the flat path of D > 1
+    ranks where there is one device (NCCL takes one rank per GPU)."""
+    from .parallel import sharded as S
+
+    d_count, bsz = cfg.n_devices, cfg.bsz
+    n = alive.shape[0]
+    n_loc = n // d_count
+    leaves = [p.detach().requires_grad_(True) for p in params]
+    tap = torch.zeros((bsz, n, 2), dtype=torch.float32, device=alive.device,
+                      requires_grad=True)
+    sends, radii = [], []
+    for s in range(d_count):
+        sl = slice(s * n_loc, (s + 1) * n_loc)
+        splats = S.project_batch(GaussianParams(*(x[sl] for x in leaves)),
+                                 alive[sl], cams, cfg, sh_degree)
+        sends.append(S.pack_for_exchange(
+            splats.means2d + tap[:, sl], splats.conics, splats.colors,
+            splats.opacities, splats.radii, splats.depths, division_pos, cfg))
+        radii.append(splats.radii)
+    send_p = torch.stack([x[0] for x in sends])   # (D src, D dst, cap, F)
+    send_m = torch.stack([x[1] for x in sends])
+    partials, l1s, ssims, per_rank = [], [], [], []
+    images = 0.0
+    for r in range(d_count):
+        lo, hi = division_pos[r], division_pos[r + 1]
+        partial, l1_part, ssim_part, own = S.owned_loss(
+            send_p[:, r].reshape(-1, S.PAYLOAD_F),
+            send_m[:, r].reshape(-1, S.META_F), lo, hi, gt_rows_u8[r], bg,
+            cfg, lambda_dssim)
+        partials.append(partial)
+        l1s.append(l1_part)
+        ssims.append(ssim_part)
+        images = images + S.rows_to_images(own.rows.detach(), own.mask, lo,
+                                           hi, cfg)
+        per_rank.append(S._aux(l1_part.detach(), ssim_part.detach(),
+                               radii[r], own, sends[r][2], sends[r][3]))
+    loss = (torch.stack(partials).sum() + lambda_dssim * bsz) * lr_scale_loss
+    *grads, tap_grad = torch.autograd.grad(loss, leaves + [tap])
+    return SimulatedStep(loss.detach(), torch.stack(l1s).sum().detach(),
+                         torch.stack(ssims).sum().detach(),
+                         GaussianParams(*grads), tap_grad,
+                         torch.cat(radii, dim=1), images, per_rank)
+
+
+def gloo_worker(rank: int, world: int, port: int, spec_path: str,
+                out_dir: str) -> None:
+    """One rank of a CPU run of ``DistributedTrainer`` over gloo, for the
+    parity test of the distributed step (tests/test_torch_distributed.py;
+    start with ``torch.multiprocessing.spawn``).
+
+    ``spec_path`` is an npz: the six parameter fields and ``alive``, the
+    cameras (``cam_angles``, ``img_w``, ``img_h``), ``gt_u8`` (B, 3, H, W),
+    ``bg``, ``division_pos`` and a JSON ``spec`` string (ParallelConfig
+    fields, learning rates, the xyz schedule, lambda_dssim, sh_degree, the
+    densify arguments of each mode). For each distribution mode the rank
+    takes one step from a fresh state, renders the initial model and
+    densifies the stepped one, and writes what it saw to
+    ``out_dir/<mode>_rank<rank>.npz``."""
+    import json
+    import os
+
+    from .convert import params_from_numpy
+    from .parallel import comm
+    from .parallel.division import pack_gt_rows
+    from .parallel.sharded import DistributedTrainer, ParallelConfig
+
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world))
+    comm.init_group("cpu")
+    try:
+        z = np.load(spec_path)
+        spec = json.loads(str(z["spec"]))
+        fields = {k: z[k] for k in GaussianParams._fields}
+        cams = [make_test_camera(int(z["img_w"]), int(z["img_h"]), angle=a)
+                for a in z["cam_angles"]]
+        cam_arr = batch_camera_arrays(cams, "cpu")
+        pos = torch.as_tensor(z["division_pos"], dtype=torch.int32)
+        bg = torch.as_tensor(z["bg"])
+        for mode in ("sharded", "replicated"):
+            cfg = ParallelConfig(**spec["parallel"],
+                                 gaussians_distribution=mode == "sharded")
+            n = z["alive"].shape[0]
+            cfg = cfg.resolved(n // world)
+            tr = DistributedTrainer(
+                cfg, spec["sh_degree"], spec["lambda_dssim"],
+                LrConfig(**spec["lrs"]), XyzLrSchedule(*spec["xyz_sched"]))
+            gt_rows = torch.as_tensor(pack_gt_rows(
+                cams, z["division_pos"], world, cfg.n_row_slots, cfg.tile_h,
+                cfg.img_h, cfg.img_w, gt_override=list(z["gt_u8"]))[rank])
+            state = tr.shard_state(train_state_init(
+                *params_from_numpy(fields, z["alive"], "cpu")))
+            new, m = tr.step(state, cam_arr, gt_rows, pos, bg)
+            imgs = tr.render(state.params, state.alive, cam_arr, pos, bg)
+            d = spec["densify"][mode]
+            _, info = tr.densify(new, 0, d["grad_threshold"],
+                                 d["min_opacity"], d["extent"],
+                                 d["percent_dense"], d["use_size_prune"])
+            out = {f"metric_{k}": v.numpy() for k, v in m.items()}
+            for k in GaussianParams._fields:
+                out[f"param_{k}"] = getattr(new.params, k).detach().numpy()
+                out[f"mu_{k}"] = getattr(new.adam.mu, k).numpy()
+                out[f"nu_{k}"] = getattr(new.adam.nu, k).numpy()
+            for k in new.stats._fields:
+                out[f"stats_{k}"] = getattr(new.stats, k).numpy()
+            out.update(images=imgs.numpy(), densify_info=info.numpy())
+            np.savez(os.path.join(out_dir, f"{mode}_rank{rank}.npz"), **out)
+    finally:
+        comm.destroy_group()

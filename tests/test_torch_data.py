@@ -293,6 +293,47 @@ def test_trainer_end2end_time_pauses_for_eval_and_saves(small_scene,
     assert "end2end (excl. eval/save)" in tr.log.getvalue()
 
 
+@pytest.mark.parametrize("frac", [None, 0.5, 0.95])
+def test_memory_guard_stops_densification(small_scene, monkeypatch, frac):
+    """While the device's memory in use passes
+    densify_memory_limit_percentage (0.9), each due densify round is
+    skipped and the JAX loop's line is logged; JAX's guard
+    (engine/trainer.py _memory_guard_tripped, given the same share through
+    its memory stats) decides and logs alike. On the CPU there is no share
+    (None) and nothing trips."""
+    import io
+    import types
+
+    from grendel_tpu.engine import trainer as JTrainer
+    from grendel_tpu.utils import timer as JTimer
+    from grendel_tpu_torch.engine.trainer import Trainer
+
+    cfg = _small_config()
+    cfg.opt.densify_from_iter, cfg.opt.densification_interval = 0, 2
+    cfg.opt.densify_until_iter = 4
+    tr = Trainer(cfg, small_scene, device="cpu", log_file=io.StringIO())
+    if frac is not None:
+        monkeypatch.setattr(tr, "_memory_fraction", lambda: frac)
+    else:
+        assert tr._memory_fraction() is None
+    tr.train()
+    tripped = frac is not None and frac > 0.9
+    assert tr.densify_count == (0 if tripped else 2)
+    port_lines = [line.split("] ", 1)[1]
+                  for line in tr.log.getvalue().splitlines()
+                  if "densification stopped" in line]
+    assert len(port_lines) == (2 if tripped else 0)
+
+    jax_lines = []
+    stats = None if frac is None else {"bytes_in_use": frac * 2**30,
+                                       "bytes_limit": 2**30}
+    monkeypatch.setattr(JTimer, "device_memory_stats", lambda: stats)
+    fake = types.SimpleNamespace(
+        cfg=cfg, _log=jax_lines.append, _hbm_usage_frac=None)
+    assert JTrainer.Trainer._memory_guard_tripped(fake) == tripped
+    assert port_lines[:1] == jax_lines
+
+
 def test_timers():
     import time as _time
 
@@ -333,9 +374,15 @@ def test_train_cli_flags():
     assert cfg.opt.opacity_reset_until_iter == 15_000 + 4
     d = p.parse_args([])
     assert (d.iterations, d.bsz, d.device) == (30_000, 1, "cuda")
+    # the JAX script's one-device options that the port now runs
+    a = p.parse_args(["--grad_normalization_mode", "divide_by_visible_count",
+                      "--densify_memory_limit_percentage", "0.75"])
+    cfg = train_cli.args_to_config(a)
+    assert cfg.dist.grad_normalization_mode == "divide_by_visible_count"
+    assert cfg.opt.densify_memory_limit_percentage == 0.75
+    assert d.densify_memory_limit_percentage == 0.9
     for extra in (["--n_devices", "2"], ["--local_sampling"],
-                  ["--save_strategy_history"],
-                  ["--grad_normalization_mode", "divide_by_visible_count"]):
+                  ["--save_strategy_history"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_cli.main(["--synthetic", "--device", "cpu"] + extra)
     with pytest.raises(SystemExit):

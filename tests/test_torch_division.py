@@ -1,0 +1,105 @@
+"""Port parity of the row division (grendel_tpu_torch/parallel/division.py
+against grendel_tpu/parallel/division.py): every function gives the same
+numpy output, exactly, on balanced, skewed (the per-device row cap binds)
+and border-snapped cases, as tests/test_parallel.py states them, and on
+random heuristics from numpy seeds."""
+
+import numpy as np
+import pytest
+
+from grendel_tpu.parallel import division as J
+from grendel_tpu.testing import make_test_camera as j_camera
+from grendel_tpu_torch.parallel import division as T
+from grendel_tpu_torch.testing import make_test_camera as t_camera
+
+
+def _skewed():
+    h = np.zeros(16)
+    h[:2] = 100.0
+    return h
+
+
+def _border(scale):
+    h = np.ones(20)
+    h[:11 if scale < 1 else 9] = scale
+    return h
+
+
+DIVIDE_CASES = {
+    "balanced": (np.ones(24), 4, 8, {}),
+    "skewed_cap": (_skewed(), 4, 8, {}),
+    "border_no_snap": (_border(0.9), 2, 20, {}),
+    "border_snap_down": (_border(0.9), 2, 20,
+                         dict(rows_per_image=10, border_coeff=1.0)),
+    "border_snap_up": (_border(1.3), 2, 20,
+                       dict(rows_per_image=10, border_coeff=1.0)),
+    "border_interior": (np.ones(20), 4, 20,
+                        dict(rows_per_image=10, border_coeff=1.0)),
+    "random": (np.random.default_rng(0).exponential(1.0, 53), 5, 14, {}),
+    "random_snap": (np.random.default_rng(1).exponential(1.0, 60), 6, 12,
+                    dict(rows_per_image=20, border_coeff=2.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DIVIDE_CASES))
+def test_divide_rows_matches_jax(name):
+    h, d, cap, kw = DIVIDE_CASES[name]
+    got = T.divide_rows(h, d, cap, **kw)
+    want = J.divide_rows(h, d, cap, **kw)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    if name == "skewed_cap":
+        assert got[1] <= 2 and np.all(np.diff(got) <= cap)
+    if name == "border_snap_down":
+        assert got[1] == 10
+    for i in range(d):
+        assert T.rows_of_device(got, i) == J.rows_of_device(want, i)
+
+
+@pytest.mark.parametrize("bsz,tiles_y,d", [(2, 4, 2), (4, 3, 2), (2, 5, 4),
+                                           (3, 7, 3)])
+def test_divide_rows_whole_images_matches_jax(bsz, tiles_y, d):
+    np.testing.assert_array_equal(T.divide_rows_whole_images(bsz, tiles_y, d),
+                                  J.divide_rows_whole_images(bsz, tiles_y, d))
+
+
+def test_division_history_matches_jax():
+    rng = np.random.default_rng(2)
+    hists = (T.DivisionHistory(tiles_y=4, decay=0.6),
+             J.DivisionHistory(tiles_y=4, decay=0.6))
+    cams = [[f(32, 32, angle=a) for a in (0.0, 0.3, 0.6)]
+            for f in (t_camera, j_camera)]
+    for cs in cams:
+        for uid, c in zip((10, 11, 12), cs):
+            c.uid = uid
+    for step in range(3):
+        batch = [0, 1] if step != 1 else [2, 1]
+        pos = np.array([0, 3, 8], np.int32)
+        costs = rng.uniform(0.5, 4.0, (2, 8))
+        for hist, cs in zip(hists, cams):
+            bc = [cs[i] for i in batch]
+            hist.update(bc, pos, costs)
+        np.testing.assert_array_equal(
+            hists[0].heuristic_for([cams[0][i] for i in (0, 1, 2)]),
+            hists[1].heuristic_for([cams[1][i] for i in (0, 1, 2)]))
+
+
+def test_pack_gt_rows_matches_jax():
+    h, w, tile_h = 40, 32, 16            # tiles_y 3, the last row half-padded
+    rng = np.random.default_rng(3)
+    gts = rng.integers(0, 255, (2, 3, h, w), dtype=np.uint8)
+    cams = [[f(w, h, angle=a) for a in (0.0, 0.2)] for f in (t_camera,
+                                                             j_camera)]
+    for cs in cams:
+        for c, g in zip(cs, gts):
+            c.gt_image_u8 = g
+    for pos, d, max_rows in (([0, 2, 6], 2, 4), ([0, 1, 1, 6], 3, 5)):
+        pos = np.array(pos, np.int32)
+        got = T.pack_gt_rows(cams[0], pos, d, max_rows, tile_h, h, w)
+        want = J.pack_gt_rows(cams[1], pos, d, max_rows, tile_h, h, w)
+        np.testing.assert_array_equal(got, want)
+        over = T.pack_gt_rows(cams[0], pos, d, max_rows, tile_h, h, w,
+                              gt_override=list(gts[::-1]))
+        np.testing.assert_array_equal(over, J.pack_gt_rows(
+            cams[1], pos, d, max_rows, tile_h, h, w,
+            gt_override=list(gts[::-1])))
