@@ -48,7 +48,10 @@ Phases, each of which fails the run:
      iteration-200 checkpoint for two more steps; K1, K2 and K3 are held
      against their plain versions, at phases 3-4's tolerances, on the
      inputs the loop's last step gave them (K2 on the loss's own
-     cotangents);
+     cotangents); iterations/s, peak memory, wall and host enqueue time
+     per step, the device time and launches per step of 5 more steps
+     under the profiler with the host's time in CUDA runtime calls, and
+     the synchronizing calls per step of 5 more;
   8. the DMA microbenchmark's kernels: K4 and K5 bit-equal to their plain
      versions at an odd chunk count (row widths 16 and 128, 0 and 24
      arithmetic rounds; ids -1 and past the table among K5's, which
@@ -69,6 +72,19 @@ Phases, each of which fails the run:
      versions on each rank's flat tile lists; K3 bit-equal to its plain
      version on every scan of both simulations; each with its device time
      per step, launches and peak memory;
+  11. the distributed host loop: phase 7's scene and schedule through
+     ``MultiRankTrainer`` on a one-rank NCCL group, which drives
+     DistributedTrainer (engine/trainer_dist.py; replicated at world size
+     1): K1, K2 and K3 in every step and held against their plain
+     versions, at phases 3-4's tolerances, on the last step's inputs
+     (its replicated row lists and the tall image's loss cotangents), the
+     same densify, growth, reset and resume checks, step-0 L1 within 1e-5
+     relative of phase 7's, held-out PSNR within 0.3 dB of phase 7's and
+     n_alive within 2% of it; its iterations/s, wall and host enqueue
+     time per step, device time and launches per step, synchronizing
+     calls per step (torch's sync debug mode) and peak memory printed
+     beside phase 7's, and both loops timed again in alternation (one,
+     distributed, distributed, one) in the same process;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -212,12 +228,13 @@ def walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, tile_w=TILE_W,
     return int(pairs), int(blended)
 
 
-def profile(fn, calls, top=14):
+def profile(fn, calls, top=14, host_top=0):
     """Device time by kernel over ``calls`` calls of ``fn`` under
     torch.profiler, per call, and the share of the window's wall time the
-    device was busy (the profiler's own overhead lengthens the window).
-    Returns the device ms per call and the rows (ms, launches, name) per
-    call."""
+    device was busy (the profiler's own overhead lengthens the window);
+    with ``host_top``, also the host's time per call in that many of the
+    costliest CUDA runtime calls (launches, copies, waits). Returns the
+    device ms per call and the rows (ms, launches, name) per call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -242,6 +259,14 @@ def profile(fn, calls, top=14):
           f"), {sum(r[1] for r in rows):.0f} kernel launches per call")
     for ms, n, key in rows[:top]:
         print(f"#   {ms:8.4f} ms  {n:5.1f}x  {key[:90]}")
+    if host_top:
+        host = sorted(((e.self_cpu_time_total / 1e3 / calls, e.count / calls,
+                        e.key) for e in prof.key_averages()
+                       if e.key.startswith("cuda")), reverse=True)
+        print(f"# host time in CUDA runtime calls: "
+              f"{sum(h[0] for h in host):.3f} ms per call, the costliest:")
+        for ms, n, key in host[:host_top]:
+            print(f"#   {ms:8.4f} ms  {n:6.1f}x  {key[:90]}")
     return busy_ms, rows
 
 
@@ -258,6 +283,51 @@ def host_walls(fn, calls):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return walls
+
+
+def sync_sites(fn):
+    """Run ``fn`` under torch's CUDA sync debug mode; returns the count of
+    synchronizing calls (an ``item``, a blocking copy) by the line of the
+    port that made them. Waits on an event are not counted."""
+    import collections
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+    pkg = str(ROOT / "grendel_tpu_torch")
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg)]
+        site = (f"{os.path.relpath(ours[-1].filename, ROOT)}:"
+                f"{ours[-1].lineno}" if ours else f"{filename}:{lineno}")
+        sites[site] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def alternating_walls(a, b, steps):
+    """Host-clock ms per step of trainers ``a`` and ``b`` trained in the
+    order a, b, b, a, ``steps`` steps each time (``train`` ends in a
+    synchronize): the two loops in one process, its drift cancelled."""
+    walls = {id(a): [], id(b): []}
+    for tr in (a, b, b, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(int(tr.state.iteration) + steps * BSZ)
+        walls[id(tr)].append((time.perf_counter() - t0) * 1e3 / steps)
+    return walls[id(a)], walls[id(b)]
 
 
 def stamp(t_start, what):
@@ -526,15 +596,146 @@ def loop_kernel_checks(calls):
     return {"K1": k1_err, "K2": k2_err, "K3": k3_err}
 
 
+def train_loop(trainer, tag, kernels_of, iterations, what, calls=None):
+    """Train ``trainer`` from its iteration to ``iterations`` as a user
+    does, zeroing every launch counter just before each step and reading
+    it just after (every step must launch every kernel); with ``calls``,
+    capture the last step's kernel inputs there. Then profile 5 more steps
+    (no densify or reset falls in them). Returns the run's record."""
+    first = int(trainer.state.iteration)
+    n_steps = (iterations - first) // BSZ
+    totals = {name: 0 for name in kernels_of}
+    losses, l1s = [], []
+    real_step = trainer._step
+
+    enqueue_ms = []
+
+    def step(*args):
+        for wrapper in kernels_of.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        if calls is not None and len(losses) == n_steps - 1:
+            with capture_kernel_inputs(calls):
+                state, metrics = real_step(*args)
+        else:
+            state, metrics = real_step(*args)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        n = {name: w.launches for name, w in kernels_of.items()}
+        require(all(v > 0 for v in n.values()),
+                f"{what} step {len(losses) + 1}: a kernel did not launch: "
+                f"{n}")
+        for name in totals:
+            totals[name] += n[name]
+        losses.append(metrics["loss"])
+        l1s.append(metrics["l1"].sum())
+        return state, metrics
+
+    trainer._step = step
+    scene = trainer.scene
+    psnr_before = trainer.eval_psnr(scene.test_cameras, 0)
+    cap0 = trainer.capacity
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the loop's own memory: the peak above what earlier phases hold
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = trainer.train(iterations)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    train_secs = trainer.end2end.total_seconds()
+    losses = torch.stack(losses).cpu()
+    psnr_after = trainer.eval_psnr(scene.test_cameras, 0)
+    n_alive = trainer._n_alive()
+    rec = dict(launches=totals, l1_0=float(l1s[0]), peak_gib=peak_gib,
+               ips=(iterations - first) / train_secs, n_alive=n_alive,
+               psnr_before=psnr_before["psnr"], psnr_after=psnr_after["psnr"],
+               enqueue_ms=statistics.median(enqueue_ms),
+               wall_ms=1e3 * train_secs / n_steps)
+    print(f"# {what}: {iterations - first} iterations ({len(losses)} steps) "
+          f"in {secs:.2f} s, {train_secs:.2f} s without checkpoint saves = "
+          f"{rec['ips']:.2f} iterations/s, peak device memory "
+          f"{peak_gib:.2f} GiB above the {base / 2**30:.2f} GiB held before "
+          f"it; per step {rec['wall_ms']:.3f} ms of wall, of which the host "
+          f"took {rec['enqueue_ms']:.3f} ms (median) to enqueue the step "
+          f"{tag}")
+    print(f"# {what}: launches {totals}; loss {float(losses[0]):.5f} -> "
+          f"{float(losses[-1]):.5f}, step-0 L1 {rec['l1_0']:.7f}; capacity "
+          f"{cap0} -> {trainer.capacity}, events {trainer.capacity_events}; "
+          f"opacity resets at {trainer.opacity_reset_iters}; {n_alive} alive")
+    for r in trainer.densify_history:
+        print(f"# {what} densify: {r}")
+    print(f"# {what} held-out PSNR {psnr_before['psnr']:.3f} -> "
+          f"{psnr_after['psnr']:.3f} dB, L1 {psnr_before['l1']:.5f} -> "
+          f"{psnr_after['l1']:.5f} ({psnr_after['n']} views)")
+    require(len(losses) == n_steps and int(state.iteration) == iterations,
+            f"{what} ran {len(losses)} steps to iteration "
+            f"{int(state.iteration)}")
+    require(bool(torch.isfinite(losses).all()), f"non-finite {what} loss")
+    require(all(bool(torch.isfinite(p).all()) for p in state.params),
+            f"non-finite parameter after the {what}")
+    grew = sum(r["clone"] + r["split"] > 0 for r in trainer.densify_history)
+    require(grew >= 2, f"{what}: fewer than two densify rounds cloned or "
+            f"split: {trainer.densify_history}")
+    require(("capacity_grow" in [k for k, _ in trainer.capacity_events])
+            and trainer.capacity > cap0, f"{what}: the capacity never grew")
+    require(bool(trainer.opacity_reset_iters), f"{what}: no opacity reset")
+    require(n_alive == trainer.densify_history[-1]["alive"],
+            f"{what}: alive count differs from the last densify's")
+    require(psnr_after["psnr"] > psnr_before["psnr"],
+            f"{what}: held-out PSNR did not rise: {psnr_before} -> "
+            f"{psnr_after}")
+    trainer._step = real_step
+    print(f"# {what} step profile:")
+    rec["dev_ms"], rows = profile(
+        lambda: trainer.train(int(trainer.state.iteration) + BSZ), 5,
+        host_top=6)
+    rec["step_launches"] = kernel_launches(rows)
+    print(f"# {what} device time per step {rec['dev_ms']:.3f} ms, launches "
+          f"per step {rec['step_launches']}, {sum(r[1] for r in rows):.0f} "
+          f"in all {tag}")
+    sites = sync_sites(
+        lambda: trainer.train(int(trainer.state.iteration) + 5 * BSZ))
+    rec["syncs"] = sum(sites.values()) / 5
+    print(f"# {what}: {rec['syncs']:.1f} synchronizing calls per step over 5 "
+          f"steps (torch.cuda sync debug mode), by site: {dict(sites)}")
+    return rec
+
+
+def resume_check(trainer, dev, what):
+    """Resume ``trainer``'s run from its mid-run checkpoint (its own
+    kind of Trainer, with densification off) and take two more steps."""
+    import dataclasses
+
+    from grendel_tpu_torch.engine.checkpoint import find_latest_checkpoint
+
+    cfg = trainer.cfg
+    ckpt = find_latest_checkpoint(cfg.model.model_path)
+    require(ckpt is not None and ckpt.endswith(str(LOOP_CHECKPOINT)),
+            f"{what}: checkpoint {ckpt}")
+    cfg2 = dataclasses.replace(cfg, start_checkpoint=ckpt,
+                               checkpoint_iterations=[])
+    cfg2.opt = dataclasses.replace(cfg.opt, densify_from_iter=10 ** 9,
+                                   densify_until_iter=0)
+    resumed = type(trainer)(cfg2, trainer.scene, device=dev)
+    require(int(resumed.state.iteration) == LOOP_CHECKPOINT,
+            f"{what}: resumed at iteration {int(resumed.state.iteration)}")
+    st = resumed.train(LOOP_CHECKPOINT + LOOP_RESUME_STEPS * BSZ)
+    require(int(st.iteration) == LOOP_CHECKPOINT + LOOP_RESUME_STEPS * BSZ
+            and all(bool(torch.isfinite(p).all()) for p in st.params),
+            f"{what}: resume reached iteration {int(st.iteration)}")
+    print(f"# {what} resumed from {os.path.basename(ckpt)}: iteration "
+          f"{LOOP_CHECKPOINT} -> {int(st.iteration)}, {int(st.alive.sum())} "
+          f"alive")
+
+
 def loop_path(dev, tag, kernels_of, scene_kw, model_path,
               iterations=LOOP_ITERS):
     """Phase 7: the host training loop through ``Trainer``, as a user
     trains; K1-K3 held against their plain versions on the last step's
-    inputs. Returns the launches summed over the run's steps, each
-    kernel's max abs error on that step and K2's inputs there."""
-    import dataclasses
-
-    from grendel_tpu_torch.engine.checkpoint import find_latest_checkpoint
+    inputs. Returns the run's record (with the scene, which phase 11
+    trains again, and the trainer, which phase 11 times beside its own),
+    each kernel's max abs error on that step and K2's inputs there."""
     from grendel_tpu_torch.engine.trainer import Trainer
     from grendel_tpu_torch.testing import StructuredSyntheticScene
 
@@ -544,102 +745,81 @@ def loop_path(dev, tag, kernels_of, scene_kw, model_path,
           f"{len(scene.test_cameras)} held-out views at {scene_kw['width']}x"
           f"{scene_kw['height']}, {scene.point_cloud.points.shape[0]} initial "
           f"points, raytraced in {time.perf_counter() - t0:.1f} s")
-    cfg = loop_config(model_path, iterations)
-    trainer = Trainer(cfg, scene, device=dev)
-    cap0 = trainer.capacity
-    psnr_before = trainer.eval_psnr(scene.test_cameras, 0)
-
-    # every step must launch every kernel: zero the counters before each
-    # step, read them after it
-    totals = {name: 0 for name in kernels_of}
-    losses = []
-    real_step = trainer._step
+    trainer = Trainer(loop_config(model_path, iterations), scene, device=dev)
     calls = {}
-
-    def step(*args, **kw):
-        for wrapper in kernels_of.values():
-            wrapper.launches = 0
-        if len(losses) == iterations // BSZ - 1:     # the last step
-            with capture_kernel_inputs(calls):
-                state, metrics = real_step(*args, **kw)
-        else:
-            state, metrics = real_step(*args, **kw)
-        n = {name: w.launches for name, w in kernels_of.items()}
-        require(all(v > 0 for v in n.values()),
-                f"loop step {len(losses) + 1}: a kernel did not launch: {n}")
-        for name in totals:
-            totals[name] += n[name]
-        losses.append(metrics["loss"])
-        return state, metrics
-
-    trainer._step = step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # the loop's own memory: the peak above what earlier phases hold
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    state = trainer.train()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    train_secs = trainer.end2end.total_seconds()
-    losses = torch.stack(losses).cpu()
-    psnr_after = trainer.eval_psnr(scene.test_cameras, 0)
-    n_alive = int(state.alive.sum())
-    print(f"# loop: {iterations} iterations ({len(losses)} steps) in "
-          f"{secs:.2f} s, {train_secs:.2f} s without checkpoint saves = "
-          f"{iterations / train_secs:.2f} iterations/s, peak device memory "
-          f"{peak_gib:.2f} GiB above the {base / 2**30:.2f} GiB held before "
-          f"it {tag}")
-    print(f"# loop: launches {totals}; loss {float(losses[0]):.5f} -> "
-          f"{float(losses[-1]):.5f}; capacity {cap0} -> {trainer.capacity}, "
-          f"events {trainer.capacity_events}; opacity resets at "
-          f"{trainer.opacity_reset_iters}; {n_alive} alive")
-    for rec in trainer.densify_history:
-        print(f"# loop densify: {rec}")
-    print(f"# loop held-out PSNR {psnr_before['psnr']:.3f} -> "
-          f"{psnr_after['psnr']:.3f} dB, L1 {psnr_before['l1']:.5f} -> "
-          f"{psnr_after['l1']:.5f} ({psnr_after['n']} views)")
-    require(len(losses) == iterations // BSZ
-            and int(state.iteration) == iterations,
-            f"loop ran {len(losses)} steps to iteration "
-            f"{int(state.iteration)}")
-    require(bool(torch.isfinite(losses).all()), "non-finite loop loss")
-    require(all(bool(torch.isfinite(p).all()) for p in state.params),
-            "non-finite parameter after the loop")
-    grew = sum(r["clone"] + r["split"] > 0 for r in trainer.densify_history)
-    require(grew >= 2, f"fewer than two densify rounds cloned or split: "
-            f"{trainer.densify_history}")
-    require(("capacity_grow" in [k for k, _ in trainer.capacity_events])
-            and trainer.capacity > cap0, "the capacity never grew")
-    require(bool(trainer.opacity_reset_iters), "no opacity reset fired")
-    require(n_alive == trainer.densify_history[-1]["alive"],
-            "alive count differs from the last densify's")
-    require(psnr_after["psnr"] > psnr_before["psnr"],
-            f"held-out PSNR did not rise: {psnr_before} -> {psnr_after}")
+    rec = train_loop(trainer, tag, kernels_of, iterations, "loop", calls)
     errs = loop_kernel_checks(calls)
     step_k2_in = calls["K2"][0]
     calls.clear()
+    resume_check(trainer, dev, "loop")
+    rec["scene"], rec["trainer"] = scene, trainer
+    return rec, errs, step_k2_in
 
-    # resume from the mid-run checkpoint and take two more steps
-    ckpt = find_latest_checkpoint(model_path)
-    require(ckpt is not None and ckpt.endswith(str(LOOP_CHECKPOINT)),
-            f"checkpoint {ckpt}")
-    cfg2 = dataclasses.replace(cfg, start_checkpoint=ckpt,
-                               checkpoint_iterations=[])
-    cfg2.opt = dataclasses.replace(cfg.opt, densify_from_iter=10 ** 9,
-                                   densify_until_iter=0)
-    resumed = Trainer(cfg2, scene, device=dev)
-    require(int(resumed.state.iteration) == LOOP_CHECKPOINT,
-            f"resumed at iteration {int(resumed.state.iteration)}")
-    st = resumed.train(LOOP_CHECKPOINT + LOOP_RESUME_STEPS * BSZ)
-    require(int(st.iteration) == LOOP_CHECKPOINT + LOOP_RESUME_STEPS * BSZ
-            and all(bool(torch.isfinite(p).all()) for p in st.params),
-            f"resume reached iteration {int(st.iteration)}")
-    print(f"# loop resumed from {os.path.basename(ckpt)}: iteration "
-          f"{LOOP_CHECKPOINT} -> {int(st.iteration)}, {int(st.alive.sum())} "
-          f"alive")
-    return totals, errs, step_k2_in
+
+def dist_loop_path(dev, tag, kernels_of, ref, model_path,
+                   iterations=LOOP_ITERS):
+    """Phase 11: phase 7's run through the multi-rank loop
+    (engine/trainer_dist.py ``MultiRankTrainer``, which drives
+    ``DistributedTrainer``) on a one-rank NCCL group over a TCP store on
+    127.0.0.1: K1-K3 in every step and held against their plain versions
+    on the last step's inputs, step-0 L1 within 1e-5 relative of phase
+    7's ``ref``, held-out PSNR rising and within 0.3 dB of phase 7's,
+    n_alive within 2% of it, and the resume; then both loops timed in
+    alternation. Returns the run's record and each kernel's max abs
+    error."""
+    import torch.distributed as dist
+
+    from grendel_tpu_torch.engine.trainer_dist import MultiRankTrainer
+    from grendel_tpu_torch.parallel import comm
+
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    comm.init_group(dev, rank=0, world_size=1, store=store)
+    try:
+        trainer = MultiRankTrainer(loop_config(model_path, iterations),
+                                   ref["scene"], device=dev)
+        require(not trainer.sharded, "phase 11 sharded the model at world "
+                "size 1")
+        calls = {}
+        rec = train_loop(trainer, tag, kernels_of, iterations,
+                         f"distributed loop ({dist.get_backend()}, world "
+                         f"size 1)", calls)
+        errs = loop_kernel_checks(calls)
+        calls.clear()
+        l1_rel = abs(rec["l1_0"] / ref["l1_0"] - 1.0)
+        d_psnr = rec["psnr_after"] - ref["psnr_after"]
+        d_alive = rec["n_alive"] / ref["n_alive"] - 1.0
+        print(f"# distributed loop against phase 7: step-0 L1 relative err "
+              f"{l1_rel:.3e}, held-out PSNR {rec['psnr_after']:.3f} vs "
+              f"{ref['psnr_after']:.3f} dB ({d_psnr:+.3f}), alive "
+              f"{rec['n_alive']} vs {ref['n_alive']} ({d_alive:+.2%}), "
+              f"{rec['ips']:.2f} vs {ref['ips']:.2f} iterations/s, wall "
+              f"{rec['wall_ms']:.3f} vs {ref['wall_ms']:.3f} ms per step "
+              f"(host enqueue of the step {rec['enqueue_ms']:.3f} vs "
+              f"{ref['enqueue_ms']:.3f} ms), device {rec['dev_ms']:.3f} vs "
+              f"{ref['dev_ms']:.3f} ms per step, synchronizing calls per "
+              f"step {rec['syncs']:.1f} vs {ref['syncs']:.1f}, launches per "
+              f"step {rec['step_launches']} vs {ref['step_launches']}, peak "
+              f"{rec['peak_gib']:.2f} vs {ref['peak_gib']:.2f} GiB {tag}")
+        require(l1_rel <= 1e-5, f"distributed loop step-0 L1 "
+                f"{rec['l1_0']} vs phase 7's {ref['l1_0']}")
+        require(abs(d_psnr) <= 0.3, f"distributed loop held-out PSNR "
+                f"{rec['psnr_after']} vs phase 7's {ref['psnr_after']}")
+        require(abs(d_alive) <= 0.02, f"distributed loop alive "
+                f"{rec['n_alive']} vs phase 7's {ref['n_alive']}")
+        one, multi = alternating_walls(ref["trainer"], trainer, 15)
+        rec["alternating"] = (one, multi)
+        ratio = sum(one) / sum(multi)
+        print(f"# one-device and distributed loops in alternation (one, "
+              f"distributed, distributed, one; 15 steps each): "
+              f"{one[0]:.3f}, {multi[0]:.3f}, {multi[1]:.3f}, {one[1]:.3f} ms "
+              f"per step; iterations/s ratio {ratio:.3f}; device busy "
+              f"{ref['dev_ms'] / statistics.mean(one):.1%} vs "
+              f"{rec['dev_ms'] / statistics.mean(multi):.1%} {tag}")
+        resume_check(trainer, dev, "distributed loop")
+    finally:
+        comm.destroy_group()
+        del store
+    return rec, errs
 
 
 def dma_check(dev):
@@ -1259,8 +1439,9 @@ def main(argv=None):
 
     # --- 7. the host training loop (this slice's main path) ---------------
     with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
-        loop_launches, loop_errs, step_k2_in = loop_path(
+        loop_rec, loop_errs, step_k2_in = loop_path(
             dev, tag, kernels_of, LOOP_SCENE, tmp)
+    loop_launches = loop_rec["launches"]
     if args.save_k2:
         tile_in = blend_in[:5] + (blend_kw["tile_lo"], blend_kw["tile_hi"])
         torch.save(tile_in + blend_in[6:] + (
@@ -1289,6 +1470,16 @@ def main(argv=None):
                       dist_record.items())
           + f"; train_step {step_dev_ms:.3f} ms {tag}")
     stamp(t_start, "distributed step checked")
+
+    # --- 11. the distributed host loop on a one-rank group ---------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
+        dist_loop_rec, dist_loop_errs = dist_loop_path(
+            dev, tag, kernels_of, loop_rec, tmp)
+    print(f"# distributed loop: launches {dist_loop_rec['launches']} over "
+          f"{LOOP_ITERS // BSZ} steps ({dist_loop_rec['step_launches']} per "
+          f"step) {tag}")
+    del loop_rec["scene"], loop_rec["trainer"]
+    stamp(t_start, "distributed loop checked")
 
     # --- 9. kernel timings -------------------------------------------------
     timer = Timer()
@@ -1397,15 +1588,16 @@ def main(argv=None):
     # the host to reach the launch; device_ms: the device's time alone.
     # launches: K1-K3 over the host training loop's steps, K4 and K5 over
     # the microbenchmark's run; max_abs_err: the larger of the checks on
-    # the garden's inputs, on a loop step's and on the simulated
-    # distributed steps' (K1-K3), and of the microbenchmark's own check and
-    # the odd chunk count's (K4, K5)
+    # the garden's inputs, on the last step of each host loop (phases 7 and
+    # 11) and on the simulated distributed steps (K1-K3), and of the
+    # microbenchmark's own check and the odd chunk count's (K4, K5)
     kernels_line = {"kernels": [
         {"name": "rasterize_fwd", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:181",
          "launches": loop_launches["K1"],
-         "max_abs_err": max(k1_err, loop_errs["K1"], dist_errs["K1"]),
+         "max_abs_err": max(k1_err, loop_errs["K1"], dist_errs["K1"],
+                            dist_loop_errs["K1"]),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
         # K3's times are per render_batch (a train_step builds its tile
@@ -1415,7 +1607,8 @@ def main(argv=None):
          "source": "grendel_tpu_torch/csrc/scan.cu",
          "replaces": "grendel_tpu/ops/scan_pallas.py:65",
          "launches": loop_launches["K3"],
-         "max_abs_err": max(k3_err, loop_errs["K3"], dist_errs["K3"]),
+         "max_abs_err": max(k3_err, loop_errs["K3"], dist_errs["K3"],
+                            dist_loop_errs["K3"]),
          "ms": k3_row["ms"], "device_ms": k3_row["device_ms"],
          "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
@@ -1424,7 +1617,8 @@ def main(argv=None):
          "source": "grendel_tpu_torch/csrc/rasterize_bwd.cu",
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:262",
          "launches": loop_launches["K2"],
-         "max_abs_err": max(k2_err, loop_errs["K2"], dist_errs["K2"]),
+         "max_abs_err": max(k2_err, loop_errs["K2"], dist_errs["K2"],
+                            dist_loop_errs["K2"]),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
         # library: torch.sum over the int32 view (K4), the PyTorch row

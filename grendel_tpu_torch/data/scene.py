@@ -144,6 +144,7 @@ class SceneDataset:
         self._pos = 0
         self.epoch = 0
         self.iteration = 0
+        self._groups: list = []       # the streams of next_batch_grouped
 
     def _refill(self):
         self._order = list(range(len(self.cameras)))
@@ -158,6 +159,35 @@ class SceneDataset:
                 self._refill()
             out.append(self.cameras[self._order[self._pos]])
             self._pos += 1
+        self.iteration += bsz
+        return out
+
+    def next_batch_grouped(self, bsz: int, n_groups: int) -> List[Camera]:
+        """A batch for local sampling: group g holds the cameras with
+        ``uid % n_groups == g`` and gives the batch positions
+        [g * bsz / n_groups, (g + 1) * bsz / n_groups), from its own
+        epoch-shuffled stream; every stream shuffles with the one
+        generator, so a seed draws the JAX package's uid sequence."""
+        if bsz % n_groups:
+            raise ValueError(f"local sampling needs bsz divisible by the "
+                             f"device count (bsz {bsz}, {n_groups} devices)")
+        if len(self._groups) != n_groups:
+            self._groups = [
+                {"idx": [i for i, c in enumerate(self.cameras)
+                         if c.uid % n_groups == g], "order": [], "pos": 0}
+                for g in range(n_groups)]
+            if not all(s["idx"] for s in self._groups):
+                raise ValueError(f"a group of the {n_groups} devices has no "
+                                 f"camera")
+        out = []
+        for s in self._groups:
+            for _ in range(bsz // n_groups):
+                if s["pos"] >= len(s["order"]):
+                    s["order"] = list(s["idx"])
+                    self.rng.shuffle(s["order"])
+                    s["pos"] = 0
+                out.append(self.cameras[s["order"][s["pos"]]])
+                s["pos"] += 1
         self.iteration += bsz
         return out
 

@@ -1,7 +1,11 @@
 """The host training loop on one GPU.
 
 Counterpart of grendel_tpu/engine/trainer.py ``Trainer`` with one device
-(the JAX package's replicated mode). Per block of ``bsz`` iterations:
+(the JAX package's replicated mode). Its subclass, engine/trainer_dist.py
+``MultiRankTrainer``, is the loop of one rank of a torch.distributed
+group, which drives parallel/sharded.py ``DistributedTrainer``;
+``trainer_dist.make_trainer`` picks between the two. Per block of ``bsz``
+iterations:
 
   batch sampling -> one ``train_step`` (engine/train.py: kernels K1, K2
   and K3 on the card) -> entry-capacity check on the previous step's
@@ -32,22 +36,24 @@ training cameras; each step indexes both. With ``random_background`` the
 background comes from the trainer's own generator seeded with
 ``cfg.seed``; the JAX package draws it from a JAX key, so the two differ.
 
-Densification stops while the device's memory in use passes
-``densify_memory_limit_percentage`` of its total (the JAX loop's memory
-guard, the reference's ``check_memory_usage_and_adjust``); on the card the
-share is ``1 - free/total`` from ``torch.cuda.mem_get_info``, on the CPU
-there is none and the guard never trips. It is read only when a densify
-round is due.
+Densification stops while the device's live tensors pass
+``densify_memory_limit_percentage`` of its memory (the JAX loop's memory
+guard, the reference's ``check_memory_usage_and_adjust``); on the CPU
+there is no such share and the guard never trips. It is read only when a
+densify round is due.
 
-Not ported, being TPU workarounds or multi-device paths: the recompile
-generation tags, the blend-budget tuner (the render gets no post-cull
-budget), the trainer cache, the HBM ceiling, redistribution, whole-image
-division, local sampling, and host-side ground-truth row packing. The
-options that select one of them raise.
+With ``local_sampling`` the batches come from ``next_batch_grouped`` with
+one group, and ``save_strategy_history`` writes the (whole-batch)
+division of every step, as the JAX loop does on one device.
+
+Not ported, being TPU workarounds: the recompile generation tags, the
+blend-budget tuner (the render gets no post-cull budget), the trainer
+cache, the HBM ceiling and host-side ground-truth row packing.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import List, Optional
@@ -60,8 +66,8 @@ from ..config import TrainConfig, check_update_at_this_iter
 from ..data.readers import PointCloud
 from ..data.scene import SceneDataset
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..models.densify import (SPLIT_N, DensifyInfo, DensifyStats,
-                              densify_and_prune, reset_opacity)
+from ..models.densify import (SPLIT_N, DensifyStats, densify_and_prune,
+                              reset_opacity)
 from ..models.gaussian_model import (GaussianParams, init_from_pcd,
                                      pad_to_capacity, round_capacity)
 from ..models.optimizer import AdamState, scaled_lrs
@@ -90,8 +96,6 @@ def _batched_psnr_l1(imgs: torch.Tensor, gt_u8: torch.Tensor):
 def check_ported(cfg: TrainConfig) -> None:
     """Raise on an option whose path the port does not have yet."""
     not_ported = {
-        "dist.local_sampling": cfg.dist.local_sampling,
-        "dist.save_strategy_history": cfg.dist.save_strategy_history,
         "nsys_profile": cfg.nsys_profile,
         "log_memory_summary": cfg.log_memory_summary,
     }
@@ -101,7 +105,10 @@ def check_ported(cfg: TrainConfig) -> None:
 
 
 class Trainer:
-    """End-to-end training of one scene on one device."""
+    """End-to-end training of one scene on one device (see the module's
+    docstring)."""
+
+    rank, world = 0, 1
 
     def __init__(self, cfg: TrainConfig, scene, device=DEFAULT_DEVICE,
                  log_file=None):
@@ -119,6 +126,7 @@ class Trainer:
         self.end2end = End2endTimer()
         self._epoch_losses: list = []
         self._last_epoch = 0
+        self._strategy_history: list = []
         self._pending_isects = None       # (count tensor, capacity) of a step
         self._isect_peak = 0.0
         self._isect_cap_current: Optional[int] = None
@@ -150,6 +158,30 @@ class Trainer:
             dtype=torch.float32, device=dev)
         self._bg_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
+        self._init_model()
+        self.dataset = SceneDataset(scene.train_cameras, seed=cfg.seed)
+        if cfg.start_checkpoint:
+            self._restore_tuner_state(cfg.start_checkpoint)
+
+        # the training cameras and their ground truth, once, on the device
+        cams = scene.train_cameras
+        self._cam_bank = batch_camera_arrays(cams, dev)
+        self._cam_index = {c.uid: i for i, c in enumerate(cams)}
+        self._gt_bank = self._make_gt_bank(cams)
+
+    def _point_cloud(self) -> PointCloud:
+        """The scene's initial points, less a random share with
+        ``drop_initial_3dgs_p`` (scaling runs)."""
+        pcd, p = self.scene.point_cloud, self.cfg.drop_initial_3dgs_p
+        if p > 0.0:
+            rng = np.random.default_rng(self.cfg.seed)
+            keep = rng.random(pcd.points.shape[0]) > p
+            pcd = PointCloud(points=pcd.points[keep], colors=pcd.colors[keep])
+        return pcd
+
+    def _init_model(self):
+        """The model, from the start checkpoint or the point cloud."""
+        cfg, dev = self.cfg, self.device
         if cfg.start_checkpoint:
             self.state = load_checkpoint_sharded(
                 cfg.start_checkpoint, 1,
@@ -157,14 +189,7 @@ class Trainer:
                 device=dev)
             n0 = int(self.state.alive.sum())
         else:
-            pcd = scene.point_cloud
-            if cfg.drop_initial_3dgs_p > 0.0:
-                # drop a random share of the initial points (scaling runs)
-                rng = np.random.default_rng(cfg.seed)
-                keep = (rng.random(pcd.points.shape[0])
-                        > cfg.drop_initial_3dgs_p)
-                pcd = PointCloud(points=pcd.points[keep],
-                                 colors=pcd.colors[keep])
+            pcd = self._point_cloud()
             n0 = pcd.points.shape[0]
             params, alive = init_from_pcd(
                 pcd.points, pcd.colors,
@@ -178,22 +203,20 @@ class Trainer:
                   f"{self.img_w}x{self.img_h}, extent "
                   f"{self.spatial_lr_scale:.3f}, device {dev}")
 
-        self.dataset = SceneDataset(scene.train_cameras, seed=cfg.seed)
-        if cfg.start_checkpoint:
-            self._restore_tuner_state(cfg.start_checkpoint)
+    @property
+    def _tiles_y(self) -> int:
+        return -(-self.img_h // self.cfg.pipeline.tile_h)
 
-        # the training cameras and their ground truth, once, on the device
-        cams = scene.train_cameras
-        self._cam_bank = batch_camera_arrays(cams, dev)
-        self._cam_index = {c.uid: i for i, c in enumerate(cams)}
-        self._gt_bank = torch.as_tensor(
-            np.stack([c.gt_image_u8 for c in cams]), device=dev)
+    def _make_gt_bank(self, cams) -> torch.Tensor:
+        """(C, 3, H, W) uint8 ground truth of the training cameras."""
+        return torch.as_tensor(np.stack([c.gt_image_u8 for c in cams]),
+                               device=self.device)
 
     # ------------------------------------------------------------------
 
     def _log(self, msg: str):
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
-        if not self.cfg.quiet:
+        if not self.cfg.quiet and self.rank == 0:
             print(line, flush=True)
         if self.log is not None:
             self.log.write(line + "\n")
@@ -238,25 +261,30 @@ class Trainer:
             self._log(f"isect near capacity ({num_isects}/{cap}): growing "
                       f"entry buffer -> {want}")
 
-    def _grow_capacity(self):
-        """Double the Gaussian capacity. New slots are dead; their Adam
-        moments and densify statistics start at zero (the statistics are
-        padded, not reset: a growth right before a densify keeps the
+    def _padded_state(self, new: int) -> TrainState:
+        """The state padded to ``new`` slots. New slots are dead; their
+        Adam moments and densify statistics start at zero (the statistics
+        are padded, not reset: a growth right before a densify keeps the
         round's gradients)."""
         st = self.state
-        old, new = self.capacity, 2 * self.capacity
+        old = st.alive.shape[0]
         params, alive = pad_to_capacity(st.params, st.alive, new)
 
         def pad0(x):
             return torch.cat([x, x.new_zeros((new - old,) + x.shape[1:])])
 
-        self.state = TrainState(
+        return TrainState(
             params=params, alive=alive,
             adam=AdamState(mu=GaussianParams(*map(pad0, st.adam.mu)),
                            nu=GaussianParams(*map(pad0, st.adam.nu)),
                            count=st.adam.count),
             stats=DensifyStats(*map(pad0, st.stats)),
             iteration=st.iteration)
+
+    def _grow_capacity(self):
+        """Double the Gaussian capacity."""
+        old, new = self.capacity, 2 * self.capacity
+        self.state = self._padded_state(new)
         self.capacity = new
         self.capacity_events.append(("capacity_grow", new))
         self._log(f"capacity grown: {old} -> {new}")
@@ -279,21 +307,24 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    def _render_eval(self, batch: List[Camera], sh_degree: int):
+        with torch.no_grad():
+            return render_batch(self.state.params, self.state.alive,
+                                batch_camera_arrays(batch, self.device),
+                                sh_degree, self.render_config(),
+                                bg=self.bg)[0]
+
     def eval_psnr(self, cameras: List[Camera], sh_degree: int,
                   max_cams: Optional[int] = None) -> dict:
         """Mean L1 and PSNR of the model's renders of ``cameras`` against
         their ground truth, in batches of bsz (the last one at its exact
         size), with one readback at the end."""
         cams = cameras[:max_cams] if max_cams else cameras
-        cfg, bsz = self.render_config(), self.cfg.dist.bsz
+        bsz = self.cfg.dist.bsz
         psnrs, l1s = [], []
         for i in range(0, len(cams), bsz):
             batch = cams[i:i + bsz]
-            with torch.no_grad():
-                imgs, _, _ = render_batch(
-                    self.state.params, self.state.alive,
-                    batch_camera_arrays(batch, self.device), sh_degree, cfg,
-                    bg=self.bg)
+            imgs = self._render_eval(batch, sh_degree)
             gt = torch.as_tensor(np.stack([c.gt_image_u8 for c in batch]),
                                  device=self.device)
             p, l1 = _batched_psnr_l1(imgs, gt)
@@ -317,26 +348,7 @@ class Trainer:
         self.end2end.start()
         while it < end:
             sh_degree = min(it // 1000, cfg.model.sh_degree)
-            self.timer.start("10 batch")
-            batch = self.dataset.next_batch(bsz)
-            ids = torch.tensor([self._cam_index[c.uid] for c in batch],
-                               device=self.device)
-            cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
-            bg = (torch.rand(3, generator=self._bg_gen, device=self.device)
-                  if o.random_background else self.bg)
-            self.timer.stop("10 batch")
-
-            self.timer.start("50 step")
-            cap = self._isect_cap()
-            self.state, metrics = self._step(cams, self._gt_bank[ids], bg,
-                                             sh_degree)
-            self.timer.stop("50 step")
-            # the previous step's entry count, read now that this step is
-            # queued behind it
-            if self._pending_isects is not None:
-                self._check_isect_capacity(int(self._pending_isects[0][0]),
-                                           self._pending_isects[1], it)
-            self._pending_isects = (metrics["num_isects"], cap)
+            metrics = self._train_step(it, sh_degree)
 
             # the schedule fires on the pre-increment, 1-based iteration
             sched_it = it + 1
@@ -353,7 +365,7 @@ class Trainer:
             if it % cfg.log_interval < bsz:
                 ips = (it - it0) / max(time.time() - t_start, 1e-9)
                 self._log(f"iter {it}: loss={float(metrics['loss']):.5f} "
-                          f"n3dgs={int(self.state.alive.sum())} "
+                          f"n3dgs={self._n_alive()} "
                           f"xyz_lr={float(metrics['xyz_lr']):.2e} "
                           f"it/s={ips:.2f}")
                 if cfg.enable_timer:
@@ -373,9 +385,7 @@ class Trainer:
             if (check_update_at_this_iter(sched_it, bsz,
                                           o.opacity_reset_interval, 0)
                     and sched_it + bsz <= o.opacity_reset_until_iter):
-                params, adam = reset_opacity(self.state.params,
-                                             self.state.adam)
-                self.state = self.state._replace(params=params, adam=adam)
+                self._reset_opacity()
                 self.opacity_reset_iters.append(int(sched_it))
                 self._log(f"iter {it}: opacity reset")
 
@@ -401,60 +411,142 @@ class Trainer:
             train_secs = self.end2end.total_seconds()
             self._log(f"end2end (excl. eval/save): {train_secs / 60:.2f} min "
                       f"({(it - it0) / max(train_secs, 1e-9):.2f} it/s)")
+        if self._strategy_history and self.rank == 0:
+            os.makedirs(cfg.model.model_path, exist_ok=True)
+            path = os.path.join(cfg.model.model_path,
+                                f"strategy_history_ws={self.world}.json")
+            with open(path, "w") as f:
+                json.dump(self._strategy_history, f)
+            self._log(f"saved strategy history to {path}")
         return self.state
+
+    def _next_batch(self) -> List[Camera]:
+        """The next batch: with ``local_sampling`` from each rank's group
+        of cameras (``uid % world``), else from the one stream."""
+        bsz = self.cfg.dist.bsz
+        if self.cfg.dist.local_sampling:
+            return self.dataset.next_batch_grouped(bsz, self.world)
+        return self.dataset.next_batch(bsz)
+
+    def _record_division(self, it: int, batch, division_pos):
+        """One step's entry of the strategy history, under the JAX loop's
+        keys."""
+        if self.cfg.dist.save_strategy_history:
+            self._strategy_history.append({
+                "iteration": it, "cameras": [c.uid for c in batch],
+                "division_pos": [int(p) for p in division_pos]})
+
+    def _train_step(self, it: int, sh_degree: int) -> dict:
+        """Draw a batch and take one step; check the previous step's entry
+        count. Returns the step's metrics."""
+        bsz = self.cfg.dist.bsz
+        self.timer.start("10 batch")
+        batch = self._next_batch()
+        ids = torch.tensor([self._cam_index[c.uid] for c in batch],
+                           device=self.device)
+        cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
+        bg = self._background()
+        self.timer.stop("10 batch")
+
+        self.timer.start("50 step")
+        cap = self._isect_cap()
+        self.state, metrics = self._step(cams, self._gt_bank[ids], bg,
+                                         sh_degree)
+        self.timer.stop("50 step")
+        # the whole batch is the one device's row span
+        self._record_division(it, batch, [0, bsz * self._tiles_y])
+        # the previous step's entry count, read now that this step is
+        # queued behind it
+        if self._pending_isects is not None:
+            self._check_isect_capacity(int(self._pending_isects[0][0]),
+                                       self._pending_isects[1], it)
+        self._pending_isects = (metrics["num_isects"], cap)
+        return metrics
+
+    def _background(self) -> torch.Tensor:
+        """The step's background: with ``random_background`` the next draw
+        of the trainer's generator (seeded with ``cfg.seed``, so the same
+        on every rank)."""
+        if self.cfg.opt.random_background:
+            return torch.rand(3, generator=self._bg_gen, device=self.device)
+        return self.bg
+
+    def _n_alive(self) -> int:
+        return int(self.state.alive.sum())
+
+    def _reset_opacity(self):
+        params, adam = reset_opacity(self.state.params, self.state.adam)
+        self.state = self.state._replace(params=params, adam=adam)
 
     def _densify(self, it: int, sched_it: int):
         """One densify round: grow ahead by the last round's growth ratio,
         densify and prune, grow again if Gaussians were dropped or the
-        capacity filled past the trigger."""
+        largest shard filled past the trigger, then the subclass's
+        follow-up (redistribution)."""
         o = self.cfg.opt
         while (self._densify_growth_ratio * self._max_alive
                > 0.92 * self.capacity):
             self._grow_capacity()
         prev_alive = self._max_alive
-        st = self.state
+        info = self._densify_and_prune(it, sched_it)
+        self.densify_count += 1
+        clone, split, prune, dropped, alive = (int(info[:, k].sum())
+                                               for k in range(5))
+        new_max = int(info[:, 4].max())
+        occ = new_max / self._shard_slots()
+        self._densify_growth_ratio = float(np.clip(
+            new_max / max(prev_alive, 1), 1.2, 3.2))
+        self._max_alive = new_max
+        self.densify_history.append({
+            "iter": int(sched_it), "clone": clone, "split": split,
+            "prune": prune, "alive": alive, "dropped": dropped})
+        self._log(f"iter {it}: densify #{self.densify_count} "
+                  f"clone={clone} split={split} prune={prune} alive={alive} "
+                  f"dropped={dropped} max_occ={occ:.2f}")
+        if dropped > 0 or occ > o.capacity_growth_trigger:
+            self._grow_capacity()
+        self._after_densify(it, info)
+
+    def _densify_and_prune(self, it: int, sched_it: int) -> np.ndarray:
+        """Densify and prune the state; returns the (D, 5) counts of every
+        shard (``DensifyInfo``'s order; D = 1 here)."""
+        o, st = self.cfg.opt, self.state
         params, alive, adam, stats, info_t = densify_and_prune(
             st.params, st.alive, st.adam, st.stats,
             self._split_noise(self.cfg.seed * 1000003 + it),
             o.densify_grad_threshold, o.min_opacity, self.spatial_lr_scale,
             o.percent_dense, sched_it > o.opacity_reset_interval)
         self.state = TrainState(params, alive, adam, stats, st.iteration)
-        info = DensifyInfo(*info_t.tolist())      # the round's one readback
-        self.densify_count += 1
-        occ = info.n_alive / self.capacity
-        self._densify_growth_ratio = float(np.clip(
-            info.n_alive / max(prev_alive, 1), 1.2, 3.2))
-        self._max_alive = info.n_alive
-        self.densify_history.append({
-            "iter": int(sched_it), "clone": info.n_cloned,
-            "split": info.n_split, "prune": info.n_pruned,
-            "alive": info.n_alive, "dropped": info.n_dropped})
-        self._log(f"iter {it}: densify #{self.densify_count} "
-                  f"clone={info.n_cloned} split={info.n_split} "
-                  f"prune={info.n_pruned} alive={info.n_alive} "
-                  f"dropped={info.n_dropped} max_occ={occ:.2f}")
-        if info.n_dropped > 0 or occ > o.capacity_growth_trigger:
-            self._grow_capacity()
+        return info_t.cpu().numpy()[None]      # the round's one readback
+
+    def _shard_slots(self) -> int:
+        """The slots of one shard, the occupancy's denominator."""
+        return self.capacity
+
+    def _after_densify(self, it: int, info: np.ndarray):
+        """What follows a densify round; nothing on one device."""
 
     def _memory_fraction(self) -> Optional[float]:
-        """Share of the device's memory in use, or None where there is no
-        such share (the CPU).
+        """Share of the device's memory that live tensors take, or None
+        where there is no such share (the CPU).
 
-        ``1 - free/total`` counts every byte taken on the card: live
-        tensors, the caching allocator's reserved blocks, the CUDA context
-        and other processes. The JAX package's guard divides live
-        ``bytes_in_use`` by ``bytes_limit``, so blocks the allocator keeps
-        cached after a peak (an eval render) can stop densification here
-        where JAX's would not."""
+        The JAX package's guard divides live ``bytes_in_use`` by
+        ``bytes_limit``; here the bytes the caching allocator has handed
+        out (``torch.cuda.memory_allocated``) are divided by the card's
+        total memory, which stands in for ``bytes_limit``. Blocks the
+        allocator keeps cached, the CUDA context and other processes do
+        not count."""
         if self.device.type != "cuda":
             return None
-        free, total = torch.cuda.mem_get_info(self.device)
-        return 1.0 - free / total
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        return torch.cuda.memory_allocated(self.device) / total
 
     def _memory_guard_tripped(self) -> bool:
-        """True, and logged, when the device's memory in use passes
+        """True, and logged, when the device's live memory passes
         ``densify_memory_limit_percentage``: densification stops."""
-        frac = self._memory_fraction()
+        return self._over_memory_limit(self._memory_fraction())
+
+    def _over_memory_limit(self, frac: Optional[float]) -> bool:
         limit = self.cfg.opt.densify_memory_limit_percentage
         if frac is not None and frac > limit:
             self._log(f"densification stopped: HBM at {frac:.0%} "
@@ -487,19 +579,35 @@ class Trainer:
             self._log(f"iter {it}: eval {name}: L1={r['l1']:.5f} "
                       f"PSNR={r['psnr']:.3f} ({r['n']} cams)")
 
+    def _distributed_io(self) -> bool:
+        """Per-rank PLY and checkpoint files; never on one device."""
+        return False
+
+    def _whole_state(self) -> TrainState:
+        """The whole model (on one device, the state itself)."""
+        return self.state
+
     def save_model(self, it: int):
         out = os.path.join(self.cfg.model.model_path, "point_cloud",
                            f"iteration_{it}")
         os.makedirs(out, exist_ok=True)
-        save_ply(os.path.join(out, "point_cloud.ply"), self.state.params,
-                 self.state.alive)
-        self._log(f"iter {it}: saved PLY to {out}")
+        if self._distributed_io():
+            save_ply(os.path.join(
+                out, f"point_cloud_rk{self.rank}_ws{self.world}.ply"),
+                self.state.params, self.state.alive)
+            self._log(f"iter {it}: saved PLY shard {self.rank} to {out}")
+            return
+        whole = self._whole_state()
+        if self.rank == 0:
+            save_ply(os.path.join(out, "point_cloud.ply"), whole.params,
+                     whole.alive)
+            self._log(f"iter {it}: saved PLY to {out}")
 
     def _tuner_state(self) -> dict:
         """The loop's host-side capacity state, under the JAX package's
         keys (its other keys belong to the parts not ported)."""
         return {
-            "n_devices": 1,
+            "n_devices": self.world,
             "isect_cap_current": self._isect_cap_current,
             "isect_peak": float(self._isect_peak),
             "densify_growth_ratio": float(self._densify_growth_ratio),
@@ -508,17 +616,18 @@ class Trainer:
         }
 
     def _restore_tuner_state(self, ckpt_dir: str):
-        """Seed the capacity state from a checkpoint's tuner.json. A set
-        written by n devices held per-device quantities, which scale by n
-        on one device."""
+        """Seed the capacity state from a checkpoint's tuner.json. Per-rank
+        quantities (entry peaks, a shard's alive count) scale by saved D /
+        D on an elastic resume."""
         saved = load_tuner_state(ckpt_dir)
         if not saved:
             return
-        ratio = float(saved.get("n_devices", 1))
-        self._isect_peak = float(saved.get("isect_peak", 0.0)) * ratio
+        ratio = saved.get("n_devices", self.world) / self.world
+        self._restore_tuner(saved, ratio)
         if saved.get("isect_cap_current"):
-            self._isect_cap_current = self._round_cap(
-                saved["isect_cap_current"] * ratio)
+            self._isect_cap_current = mantissa_round_cap(
+                saved["isect_cap_current"] * ratio, floor=ISECT_CAP_FLOOR,
+                align=128 * max(1, self.cfg.dist.bsz))
         self._densify_growth_ratio = float(
             saved.get("densify_growth_ratio", 2.0))
         self._max_alive = max(self._max_alive,
@@ -526,10 +635,26 @@ class Trainer:
         self.densify_count = int(saved.get("densify_count", 0))
         self._log(f"tuner state restored from {ckpt_dir}: "
                   f"isect_cap={self._isect_cap_current} "
-                  f"densify_count={self.densify_count}")
+                  f"densify_count={self.densify_count}"
+                  + (f" (rescaled x{ratio:.2f} for elastic resume)"
+                     if ratio != 1.0 else ""))
+
+    def _restore_tuner(self, saved: dict, ratio: float):
+        """The subclass's own keys of the tuner state; here the entry
+        peak."""
+        self._isect_peak = float(saved.get("isect_peak", 0.0)) * ratio
 
     def save_checkpoint(self, it: int):
         out = os.path.join(self.cfg.model.model_path, "checkpoints", str(it))
-        save_checkpoint(out, self.state, rank=0, world_size=1)
-        save_tuner_state(out, self._tuner_state())
-        self._log(f"iter {it}: saved checkpoint to {out}")
+        if self._distributed_io():
+            save_checkpoint(out, self.state, rank=self.rank,
+                            world_size=self.world)
+            written = f"checkpoint shard {self.rank}"
+        else:
+            whole = self._whole_state()
+            if self.rank == 0:
+                save_checkpoint(out, whole, rank=0, world_size=1)
+            written = "checkpoint"
+        if self.rank == 0:
+            save_tuner_state(out, self._tuner_state())
+        self._log(f"iter {it}: saved {written} to {out}")

@@ -8,8 +8,8 @@ this is their counterpart for one process per device:
     (:func:`destroy_group` leaves it);
   * :func:`all_to_all`: the sparse exchange, differentiable (its backward
     is the same exchange of the gradient);
-  * :func:`all_reduce_sum`: one collective over a list of tensors, packed
-    into one flat buffer;
+  * :func:`all_reduce_sum` and :func:`all_reduce_max`: one collective over
+    a list of tensors, packed into one flat buffer;
   * :func:`all_gather`: every rank's tensor, stacked (the telemetry).
 
 Every rank must call these in the same order: gloo and NCCL match
@@ -18,6 +18,7 @@ collectives by the order in which they are called.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import torch
@@ -29,13 +30,15 @@ def init_group(device, rank: Optional[int] = None,
     """Join the default process group: NCCL for a ``cuda`` device, gloo
     for the CPU. Without ``store`` the rank, world size and rendezvous come
     from the ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``
-    environment variables."""
+    environment variables. A ``cuda`` device without an index is the card
+    ``LOCAL_RANK`` names (torchrun sets it; 0 without it), so that the
+    ranks of one machine take one card each."""
     dev = torch.device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
-        torch.cuda.set_device(torch.device(
-            "cuda", torch.cuda.current_device() if dev.index is None
-            else dev.index))
+        index = (int(os.environ.get("LOCAL_RANK", 0)) if dev.index is None
+                 else dev.index)
+        torch.cuda.set_device(torch.device("cuda", index))
     if store is not None:
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world_size)
@@ -74,17 +77,26 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     return _exchange(x)
 
 
-def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum over ranks of each tensor, through one collective on one
-    flat float32 buffer; each result keeps its tensor's shape and dtype."""
+def _all_reduce(tensors: List[torch.Tensor], op) -> List[torch.Tensor]:
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, op=op)
     out, at = [], 0
     for t in tensors:
         n = t.numel()
         out.append(flat[at:at + n].reshape(t.shape).to(t.dtype))
         at += n
     return out
+
+
+def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum over ranks of each tensor, through one collective on one
+    flat float32 buffer; each result keeps its tensor's shape and dtype."""
+    return _all_reduce(tensors, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The largest value over ranks of each tensor, the same way."""
+    return _all_reduce(tensors, dist.ReduceOp.MAX)
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:

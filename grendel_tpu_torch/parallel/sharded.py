@@ -418,6 +418,33 @@ def local_forward_replicated(params: GaussianParams, alive, tap, cams,
 # --------------------------------------------------------------------------
 
 
+def shard_state(state: TrainState, rank: int, world: int,
+                replicated: bool) -> TrainState:
+    """Rank ``rank``'s part of a whole state: its contiguous slice of every
+    per-Gaussian tensor, or the whole state when replicated."""
+    capacity = state.alive.shape[0]
+    if replicated:
+        sl = slice(0, capacity)
+    elif capacity % world:
+        raise ValueError(f"capacity {capacity} does not divide by {world} "
+                         f"ranks")
+    else:
+        n_loc = capacity // world
+        sl = slice(rank * n_loc, (rank + 1) * n_loc)
+
+    def cut(x):
+        return x[sl].clone()
+
+    return TrainState(
+        params=GaussianParams(*map(cut, state.params)),
+        alive=cut(state.alive),
+        adam=state.adam._replace(
+            mu=GaussianParams(*map(cut, state.adam.mu)),
+            nu=GaussianParams(*map(cut, state.adam.nu))),
+        stats=type(state.stats)(*map(cut, state.stats)),
+        iteration=state.iteration)
+
+
 class DistributedTrainer:
     """The distributed train, render, densify and opacity-reset steps of
     one rank of the default torch.distributed group (the JAX package's
@@ -452,29 +479,8 @@ class DistributedTrainer:
             cfg.bg_seed)
 
     def shard_state(self, state: TrainState) -> TrainState:
-        """This rank's part of a whole state: its contiguous slice of every
-        per-Gaussian tensor, or the whole state when replicated."""
-        capacity = state.alive.shape[0]
-        if self.replicated:
-            sl = slice(0, capacity)
-        elif capacity % self.world:
-            raise ValueError(f"capacity {capacity} does not divide by "
-                             f"{self.world} ranks")
-        else:
-            n_loc = capacity // self.world
-            sl = slice(self.rank * n_loc, (self.rank + 1) * n_loc)
-
-        def cut(x):
-            return x[sl].clone()
-
-        return TrainState(
-            params=GaussianParams(*map(cut, state.params)),
-            alive=cut(state.alive),
-            adam=state.adam._replace(
-                mu=GaussianParams(*map(cut, state.adam.mu)),
-                nu=GaussianParams(*map(cut, state.adam.nu))),
-            stats=type(state.stats)(*map(cut, state.stats)),
-            iteration=state.iteration)
+        """This rank's part of a whole state (:func:`shard_state`)."""
+        return shard_state(state, self.rank, self.world, self.replicated)
 
     def _forward(self, params, alive, tap, cams, gt_rows_u8, division_pos, bg):
         fwd = local_forward_replicated if self.replicated else local_forward

@@ -1,15 +1,21 @@
-"""Training on one GPU: the port's counterpart of scripts/train.py.
+"""Training on one GPU, or on several under torchrun: the port's
+counterpart of scripts/train.py.
 
-The flag names are the JAX script's, for its one-device path. Run from the
-repository root:
+The flag names are the JAX script's. Run from the repository root:
 
     python -m grendel_tpu_torch.scripts.train -s <scene_dir> -m out/run1 --eval --bsz 4
     python -m grendel_tpu_torch.scripts.train --synthetic_structured \\
         --synthetic_cams 10 --llffhold 5 --iterations 300 --bsz 2
+    torchrun --nproc_per_node 4 -m grendel_tpu_torch.scripts.train \\
+        -s <scene_dir> -m out/run4 --bsz 4
 
-The run goes to the card unless ``--device cpu`` is given. The multi-device
-flags of the JAX script (``--n_devices`` above 1, ``--local_sampling``,
-``--save_strategy_history``) raise "not ported yet".
+The run goes to the card unless ``--device cpu`` is given. Under torchrun
+(``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set) every process joins one
+process group, NCCL with rank r on card ``cuda:{LOCAL_RANK}``, or gloo on
+the CPU with ``--device cpu``, and trains its share with the multi-rank
+loop (engine/trainer_dist.py); ``--n_devices`` must then be the world
+size (-1, the default, takes it). Each rank logs to
+``python_ws={world}_rk={rank}.log``.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import time
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="3DGS training on one GPU")
+    p = argparse.ArgumentParser(description="3DGS training on one or more "
+                                "GPUs")
     # the model
     p.add_argument("--source_path", "-s", type=str, default="")
     p.add_argument("--model_path", "-m", type=str, default="")
@@ -61,9 +68,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random_background", action="store_true")
     p.add_argument("--densify_memory_limit_percentage", type=float,
                    default=0.9)
-    # the batch; the multi-device options raise
+    # the batch and its distribution over the ranks
     p.add_argument("--bsz", type=int, default=1)
-    p.add_argument("--n_devices", type=int, default=1)
+    p.add_argument("--n_devices", type=int, default=-1,
+                   help="the world size under torchrun; -1 = the world")
+    p.add_argument("--gaussians_distribution", type=int, default=1)
+    p.add_argument("--image_distribution", type=int, default=1)
+    p.add_argument("--image_distribution_mode", type=str, default="final",
+                   help="parsed for the reference's command lines; only "
+                        "'final' exists")
+    p.add_argument("--heuristic_decay", type=float, default=0.0)
+    p.add_argument("--no_heuristics_update", action="store_true")
+    p.add_argument("--adjust_strategy_warmp_iterations", type=int,
+                   default=-1, help="-1 = one epoch")
+    p.add_argument("--border_divpos_coeff", type=float, default=1.0,
+                   help="snap division points within this many tile rows "
+                        "of an image boundary to the boundary")
+    p.add_argument("--redistribute_gaussians_mode", type=str,
+                   default="random_redistribute",
+                   choices=["random_redistribute", "no_redistribute"])
+    p.add_argument("--redistribute_gaussians_frequency", type=int, default=10)
+    p.add_argument("--redistribute_gaussians_threshold", type=float,
+                   default=1.1)
+    p.add_argument("--distributed_save", type=int, default=1,
+                   help="per-rank PLY and checkpoint files of a sharded "
+                        "model")
+    p.add_argument("--distributed_dataset_storage", type=int, default=1,
+                   help="parsed; every rank keeps the training ground "
+                        "truth on its device")
+    p.add_argument("--sync_grad_mode", type=str, default="dense",
+                   choices=["dense", "sparse", "fused_dense", "fused_sparse"],
+                   help="parsed; the replicated gradients are one "
+                        "all-reduce")
     p.add_argument("--local_sampling", action="store_true")
     p.add_argument("--save_strategy_history", action="store_true")
     p.add_argument("--grad_normalization_mode", type=str, default="none",
@@ -141,6 +177,16 @@ def args_to_config(a):
     d.bsz, d.local_sampling = a.bsz, a.local_sampling
     d.save_strategy_history = a.save_strategy_history
     d.grad_normalization_mode = a.grad_normalization_mode
+    d.gaussians_distribution = bool(a.gaussians_distribution)
+    d.image_distribution = bool(a.image_distribution)
+    d.distributed_save = bool(a.distributed_save)
+    d.distributed_dataset_storage = bool(a.distributed_dataset_storage)
+    for f in ("image_distribution_mode", "heuristic_decay",
+              "no_heuristics_update", "adjust_strategy_warmp_iterations",
+              "border_divpos_coeff", "redistribute_gaussians_mode",
+              "redistribute_gaussians_frequency",
+              "redistribute_gaussians_threshold", "sync_grad_mode"):
+        setattr(d, f, getattr(a, f))
     d.num_train_cameras, d.num_test_cameras = (a.num_train_cameras,
                                                a.num_test_cameras)
     cfg.end2end_time = bool(a.end2end_time)
@@ -193,9 +239,14 @@ def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
     if not (a.synthetic or a.synthetic_structured) and not a.source_path:
         raise SystemExit("need --source_path (or --synthetic[_structured])")
-    if a.n_devices != 1:
-        raise NotImplementedError(
-            f"not ported yet: --n_devices {a.n_devices} (one device only)")
+    launched = "WORLD_SIZE" in os.environ        # by torchrun
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    rank = int(os.environ.get("RANK", 0))
+    if a.n_devices not in (-1, world):
+        raise SystemExit(
+            f"--n_devices {a.n_devices} but the world has {world} "
+            f"process(es): start one process per device with torchrun "
+            f"--nproc_per_node {a.n_devices}")
     if not a.model_path:
         a.model_path = os.path.join(
             "output",
@@ -205,23 +256,35 @@ def main(argv=None) -> int:
 
     from ..device import resolve_device
     from ..engine.checkpoint import find_latest_checkpoint
-    from ..engine.trainer import Trainer, check_ported
+    from ..engine.trainer import check_ported
+    from ..engine.trainer_dist import make_trainer
+    from ..parallel import comm
 
     cfg = args_to_config(a)
     check_ported(cfg)
     device = resolve_device(a.device)
+    if launched and device.type == "cuda":
+        device = resolve_device(f"cuda:{os.environ.get('LOCAL_RANK', 0)}")
     os.makedirs(cfg.model.model_path, exist_ok=True)
-    with open(os.path.join(cfg.model.model_path, "args.json"), "w") as f:
-        json.dump(vars(a), f, indent=2)
+    if rank == 0:
+        with open(os.path.join(cfg.model.model_path, "args.json"), "w") as f:
+            json.dump(vars(a), f, indent=2)
     if cfg.auto_start_checkpoint and cfg.start_checkpoint is None:
         cfg.start_checkpoint = find_latest_checkpoint(cfg.model.model_path)
-    scene = make_scene(a, device)
-    os.makedirs(cfg.log_folder, exist_ok=True)
-    with open(os.path.join(cfg.log_folder, "python_ws=1_rk=0.log"),
-              "a") as log_file:
-        trainer = Trainer(cfg, scene, device=device, log_file=log_file)
-        trainer.train()
-        trainer.save_model(int(trainer.state.iteration))
+    if launched:
+        comm.init_group(device)
+    try:
+        scene = make_scene(a, device)
+        os.makedirs(cfg.log_folder, exist_ok=True)
+        with open(os.path.join(cfg.log_folder,
+                               f"python_ws={world}_rk={rank}.log"),
+                  "a") as log_file:
+            trainer = make_trainer(cfg, scene, device=device,
+                                   log_file=log_file)
+            trainer.train()
+            trainer.save_model(int(trainer.state.iteration))
+    finally:
+        comm.destroy_group()
     return 0
 
 

@@ -14,7 +14,11 @@ package's, its random bits cannot be reproduced.
   * :class:`SyntheticScene` and :class:`StructuredSyntheticScene`: the
     scenes the training loop trains on (``Scene``'s duck type), a random
     Gaussian scene rendered to its ground truth, and the raytraced
-    hemisphere-rig scene with a held-out split.
+    hemisphere-rig scene with a held-out split;
+  * :func:`simulate_distributed`, :func:`gloo_worker` and
+    :func:`trainer_worker`: the distributed step of D ranks in one
+    process, and one rank of a gloo run of the step or of the training
+    loop, for the multi-device tests.
 """
 
 from __future__ import annotations
@@ -737,5 +741,98 @@ def gloo_worker(rank: int, world: int, port: int, spec_path: str,
                 out[f"stats_{k}"] = getattr(new.stats, k).numpy()
             out.update(images=imgs.numpy(), densify_info=info.numpy())
             np.savez(os.path.join(out_dir, f"{mode}_rank{rank}.npz"), **out)
+    finally:
+        comm.destroy_group()
+
+
+def apply_config(cfg, overrides: dict):
+    """Set ``overrides`` on a TrainConfig: a dict value sets the fields of
+    that section (``{"opt": {"iterations": 8}}``), any other value the
+    top-level field. Returns ``cfg.finalize()``."""
+    for key, value in overrides.items():
+        if isinstance(value, dict):
+            for field, v in value.items():
+                setattr(getattr(cfg, key), field, v)
+        else:
+            setattr(cfg, key, value)
+    return cfg.finalize()
+
+
+def trainer_worker(rank: int, world: int, port: int, spec_path: str,
+                   out_dir: str) -> None:
+    """One rank of a CPU run of the port's training loop over gloo
+    (engine/trainer_dist.py ``MultiRankTrainer``), for the
+    multi-rank loop's tests (start with ``torch.multiprocessing``).
+
+    ``spec_path`` is an npz: the scene (``train_*`` and ``test_*`` camera
+    arrays as convert.cameras_from_numpy takes them, ``points``,
+    ``colors``, ``extent``) and a JSON ``spec`` string: ``config``, the
+    TrainConfig overrides (:func:`apply_config`; the model path is
+    ``out_dir``), and optionally ``memory_fraction`` ({rank: share} that
+    replaces the rank's device memory share) and ``gt_steps`` (the steps
+    whose ground-truth rows are kept). The rank writes
+    ``out_dir/rank<rank>.npz``: every step's loss and l1, the JSON
+    records of the run, the held-out eval, the kept ground-truth rows
+    with their step's batch and division; and logs to
+    ``out_dir/log_rk<rank>.txt``."""
+    import json
+    import os
+
+    from .config import TrainConfig
+    from .convert import scene_from_numpy
+    from .engine.trainer_dist import MultiRankTrainer
+    from .parallel import comm
+
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world))
+    comm.init_group("cpu")
+    try:
+        z = np.load(spec_path)
+        spec = json.loads(str(z["spec"]))
+
+        def cams(prefix):
+            return {k[len(prefix):]: z[k] for k in z.files
+                    if k.startswith(prefix)}
+
+        scene = scene_from_numpy(cams("train_"), cams("test_"), z["points"],
+                                 z["colors"], float(z["extent"]))
+        cfg = apply_config(TrainConfig(), dict(
+            spec["config"], model=dict(spec["config"].get("model", {}),
+                                       model_path=out_dir)))
+        with open(os.path.join(out_dir, f"log_rk{rank}.txt"), "w") as log:
+            tr = MultiRankTrainer(cfg, scene, device="cpu", log_file=log)
+            frac = spec.get("memory_fraction", {}).get(str(rank))
+            if frac is not None:
+                tr._memory_fraction = lambda: frac
+            losses, gt = [], []
+            real_step, real_rows = tr._step, tr._gt_rows
+
+            def step(*args):
+                state, m = real_step(*args)
+                losses.append((float(m["loss"]), float(m["l1"])))
+                return state, m
+
+            def gt_rows(ids, pos, pcfg):
+                rows = real_rows(ids, pos, pcfg)
+                if len(gt) < spec.get("gt_steps", 0):
+                    gt.append((ids.numpy(), pos.numpy(), rows.numpy()))
+                return rows
+
+            tr._step, tr._gt_rows = step, gt_rows
+            tr.train()
+            ev = tr.eval_psnr(scene.test_cameras, cfg.model.sh_degree)
+            records = dict(
+                densify_history=tr.densify_history,
+                capacity_events=tr.capacity_events,
+                opacity_reset_iters=tr.opacity_reset_iters,
+                redistribute_count=tr.redistribute_count,
+                n_alive=tr._n_alive(), n_local=tr.n_local,
+                iteration=int(tr.state.iteration), eval=ev)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 losses=np.array(losses), records=json.dumps(records),
+                 gt_ids=np.array([g[0] for g in gt]),
+                 gt_pos=np.array([g[1] for g in gt]),
+                 gt_rows=np.array([g[2] for g in gt]))
     finally:
         comm.destroy_group()

@@ -129,6 +129,26 @@ def test_scene_and_dataset_match_jax(colmap_dir, resolution):
         TS.SceneDataset([])
 
 
+@pytest.mark.parametrize("n_groups", [2, 4])
+def test_grouped_batches_match_jax(colmap_dir, n_groups):
+    """Local sampling: JAX's uid sequence over three epochs of every
+    group, batch position j from group j // (bsz / D); a batch size that
+    D does not divide raises."""
+    t = TS.Scene(str(colmap_dir), eval_split=True, llffhold=8, seed=3)
+    j = JS.Scene(str(colmap_dir), eval_split=True, llffhold=8, seed=3)
+    bsz = 2 * n_groups
+    dt = TS.SceneDataset(t.train_cameras, seed=5)
+    dj = JS.SceneDataset(j.train_cameras, seed=5)
+    for _ in range(3 * len(t.train_cameras) // 2):
+        uids = [c.uid for c in dt.next_batch_grouped(bsz, n_groups)]
+        assert uids == [c.uid for c in dj.next_batch_grouped(bsz, n_groups)]
+        assert [u % n_groups for u in uids] == \
+            [i // 2 for i in range(bsz)]
+    assert dt.iteration == dj.iteration
+    with pytest.raises(ValueError, match="divisible"):
+        dt.next_batch_grouped(bsz + 1, n_groups)
+
+
 def test_blender_decode_matches_jax(tmp_path):
     from PIL import Image
 
@@ -334,6 +354,27 @@ def test_memory_guard_stops_densification(small_scene, monkeypatch, frac):
     assert port_lines[:1] == jax_lines
 
 
+def test_memory_fraction_reads_live_bytes(small_scene, monkeypatch):
+    """On the card the guard's share is the allocator's live bytes over
+    the card's total memory (JAX's bytes_in_use / bytes_limit); cached
+    blocks and free memory do not enter it."""
+    import io
+    import types
+
+    from grendel_tpu_torch.engine.trainer import Trainer
+
+    tr = Trainer(_small_config(), small_scene, device="cpu",
+                 log_file=io.StringIO())
+    tr.device = torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 6 << 30)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            total_memory=8 << 30))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (0, 8 << 30))
+    assert tr._memory_fraction() == 0.75
+    assert not tr._memory_guard_tripped()
+
+
 def test_timers():
     import time as _time
 
@@ -381,9 +422,40 @@ def test_train_cli_flags():
     assert cfg.dist.grad_normalization_mode == "divide_by_visible_count"
     assert cfg.opt.densify_memory_limit_percentage == 0.75
     assert d.densify_memory_limit_percentage == 0.9
-    for extra in (["--n_devices", "2"], ["--local_sampling"],
-                  ["--save_strategy_history"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train_cli.main(["--synthetic", "--device", "cpu"] + extra)
+    # the multi-device options now run: local sampling and the strategy
+    # history pass check_ported, and the distribution flags set the
+    # configuration as the JAX script's do
+    from grendel_tpu_torch.engine.trainer import check_ported
+    from scripts import train as jax_cli
+
+    flags = ["--local_sampling", "--save_strategy_history",
+             "--gaussians_distribution", "0", "--image_distribution", "0",
+             "--heuristic_decay", "0.5", "--no_heuristics_update",
+             "--redistribute_gaussians_mode", "no_redistribute",
+             "--redistribute_gaussians_frequency", "3",
+             "--redistribute_gaussians_threshold", "1.5",
+             "--distributed_save", "0", "--distributed_dataset_storage", "1",
+             "--border_divpos_coeff", "2.0",
+             "--adjust_strategy_warmp_iterations", "7",
+             "--sync_grad_mode", "sparse", "--image_distribution_mode",
+             "final"]
+    cfg = train_cli.args_to_config(p.parse_args(flags))
+    check_ported(cfg)
+    jcfg = jax_cli.args_to_config(jax_cli.build_parser().parse_args(flags))
+    for f in ("local_sampling", "save_strategy_history",
+              "gaussians_distribution", "image_distribution",
+              "heuristic_decay", "no_heuristics_update",
+              "redistribute_gaussians_mode",
+              "redistribute_gaussians_frequency",
+              "redistribute_gaussians_threshold", "distributed_save",
+              "distributed_dataset_storage", "border_divpos_coeff",
+              "adjust_strategy_warmp_iterations", "sync_grad_mode",
+              "image_distribution_mode"):
+        assert getattr(cfg.dist, f) == getattr(jcfg.dist, f), f
+    assert d.n_devices == -1
+    # more devices than processes: the CLI asks for torchrun
+    with pytest.raises(SystemExit, match="torchrun"):
+        train_cli.main(["--synthetic", "--device", "cpu", "--n_devices",
+                        "2"])
     with pytest.raises(SystemExit):
         train_cli.main(["--device", "cpu"])

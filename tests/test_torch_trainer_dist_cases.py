@@ -1,0 +1,130 @@
+"""The multi-rank training loop's other paths, on 2 gloo ranks on the CPU,
+in short runs of __graft_entry__.py's scene (8 iterations at bsz 2, one
+densify round after the 4th step; see tests/test_torch_trainer_dist.py):
+
+  * whole-image division (``image_distribution`` off) and
+    ``local_sampling`` (each rank draws from its own cameras, ``uid % 2``),
+    against grendel_tpu's 2-device ``Trainer`` (its ground truth packed on
+    the host, where JAX keeps ``local_sampling`` on; its densify threshold
+    times 2): the strategy history (cameras and division) equal at every
+    step, every loss within 1e-4 relative, the densify round's counts
+    equal;
+  * the memory guard with rank 1's memory share alone above the limit:
+    both ranks take the maximum, stop densifying and log it, and neither
+    waits for the other;
+  * the port's CLI under ``python -m torch.distributed.run`` with 2 CPU
+    processes: it trains, and each rank writes its log, PLY and checkpoint
+    files.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from grendel_tpu.engine.trainer import Trainer as JTrainer
+from grendel_tpu_torch.engine.checkpoint import checkpoint_name
+from tests.test_torch_trainer_dist import (D, jax_config, jax_scene,
+                                           run_ranks, tap_jax)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHORT = dict(
+    model=dict(sh_degree=1),
+    dist=dict(bsz=2, save_strategy_history=True),
+    opt=dict(iterations=8, densify_from_iter=4, densification_interval=8,
+             densify_until_iter=8, densify_grad_threshold=1e-9,
+             opacity_reset_interval=24),
+    checkpoint_iterations=[], test_iterations=[], save_iterations=[],
+    log_interval=16, quiet=True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _single_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return jax_scene()
+
+
+@pytest.mark.parametrize("option", ["image_distribution_off",
+                                    "local_sampling"])
+def test_whole_image_division_matches_jax(option, scene, tmp_path,
+                                          eight_devices):
+    dist = dict(SHORT["dist"])
+    if option == "local_sampling":
+        dist["local_sampling"] = True
+    else:
+        dist["image_distribution"] = False
+    config = dict(SHORT, dist=dist)
+    (tmp_path / "jax").mkdir()
+    jt = JTrainer(jax_config(dict(config, dist=dict(
+        dist, preload_dataset_to_gpu_threshold=0)), str(tmp_path / "jax")),
+        scene, devices=eight_devices[:D])
+    j_losses = tap_jax(jt)
+    jt.train()
+    assert jt._whole_image_division
+
+    out = tmp_path / "ranks"
+    out.mkdir()
+    ranks = run_ranks(scene, dict(config=config), str(out))
+    histories = []
+    for d in (out, tmp_path / "jax"):
+        with open(d / "strategy_history_ws=2.json") as f:
+            histories.append(json.load(f))
+    assert histories[0] == histories[1]
+    tiles_y = 3
+    assert all(h["division_pos"] == [0, tiles_y, 2 * tiles_y]
+               for h in histories[0])
+    if option == "local_sampling":       # rank g's camera has uid % 2 == g
+        assert all([u % 2 for u in h["cameras"]] == [0, 1]
+                   for h in histories[0])
+    t_losses = ranks[0]["losses"]
+    assert t_losses.shape == np.shape(j_losses) == (4, 2)
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
+    rec = ranks[0]["records"]
+    assert rec["densify_history"] == jt.densify_history
+
+
+def test_memory_guard_stops_every_rank(scene, tmp_path):
+    ranks = run_ranks(scene, dict(config=SHORT, memory_fraction={"1": 0.95}),
+                      str(tmp_path), timeout=120.0)
+    for r, rank in enumerate(ranks):
+        assert rank["records"]["densify_history"] == []
+        assert rank["records"]["iteration"] == 8
+        with open(tmp_path / f"log_rk{r}.txt") as f:
+            log = f.read()
+        assert "densification stopped: HBM at 95% (limit 90%)" in log, log
+
+
+def test_cli_under_torchrun(tmp_path):
+    out = tmp_path / "run"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "grendel_tpu_torch.scripts.train",
+           "--synthetic", "--synthetic_size", "48x32", "--iterations", "8",
+           "--bsz", "2", "--densify_from_iter", "2",
+           "--densification_interval", "4", "--densify_until_iter", "8",
+           "--redistribute_gaussians_frequency", "1",
+           "--checkpoint_iterations", "8", "--n_devices", "2",
+           "--device", "cpu", "-q", "-m", str(out)]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    for r in range(2):
+        with open(out / f"python_ws=2_rk={r}.log") as f:
+            log = f.read()
+        assert "training done: 8 iters" in log, log
+        assert "densify #2" in log and "redistributed" in log, log
+        assert (out / "point_cloud" / "iteration_8"
+                / f"point_cloud_rk{r}_ws2.ply").exists()
+        assert (out / "checkpoints" / "8" / checkpoint_name(2, r)).exists()
+    assert (out / "checkpoints" / "8" / "tuner.json").exists()
