@@ -41,10 +41,10 @@ Phases, each of which fails the run:
      Trainer on the raytraced StructuredSyntheticScene (1280x832, 8 train
      and 2 held-out views, 100,000 initial points), bsz 2 for 300
      iterations with densify rounds at 200 and 300, an opacity reset at
-     200 and a checkpoint at 200; the launch counters must show K1, K2
-     and K3 in every step, and the run must densify with clones or splits
-     at least twice, grow the capacity, reset the opacity, keep every
-     parameter finite, raise the held-out PSNR, and resume from its
+     200 and checkpoints at 200 and 300; the launch counters must show
+     K1, K2 and K3 in every step, and the run must densify with clones or
+     splits at least twice, grow the capacity, reset the opacity, keep
+     every parameter finite, raise the held-out PSNR, and resume from its
      iteration-200 checkpoint for two more steps; K1, K2 and K3 are held
      against their plain versions, at phases 3-4's tolerances, on the
      inputs the loop's last step gave them (K2 on the loss's own
@@ -85,6 +85,24 @@ Phases, each of which fails the run:
      calls per step (torch's sync debug mode) and peak memory printed
      beside phase 7's, and both loops timed again in alternation (one,
      distributed, distributed, one) in the same process;
+  12. the tools on phase 7's trained model, as a user runs them after
+     training: ckpt_to_ply of the iteration-300 checkpoint (the PLY's
+     fields equal the checkpoint's); scripts/render.py through main(argv)
+     over all 10 views at 1280x832, bsz 2 (K1 and K3 counted in every
+     batch, and held against their plain versions, at phases 3-4's
+     tolerances, on the first batch's inputs: 16x16 tiles on exact-size
+     lists; each PNG within one level of 255 of render_batch's image of
+     the view; ms per view); scripts/metrics.py on that tree with LPIPS
+     on random weights made from a seed (test PSNR within 0.02 dB of
+     Trainer.eval_psnr on the same model); LPIPS on the card within 1e-4
+     relative of the CPU on one pair, with TF32 allowed outside it;
+     scripts/profile_step.py at the garden shape (every stage finite and
+     positive; K1-K3 launched where each stage runs them, and held
+     against their plain versions on one full_step's inputs, K3 also on
+     one isect call's), printed beside
+     phase 9's train_step device time; a 30-iteration CLI run of the
+     structured scene at 640x416 with --nsys_profile and
+     --log_memory_summary (the trace names K1; three memory lines);
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -111,6 +129,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -137,6 +156,10 @@ LOOP_SCENE = dict(width=1280, height=832, n_cams=10, llffhold=5,
 LOOP_ITERS, LOOP_CHECKPOINT, LOOP_RESUME_STEPS = 300, 200, 2
 # the distributed step: steps in each distribution mode at world size 1
 DIST_STEPS = 3
+# the tools: the step profiler at the garden shape, and the CLI run's
+# structured scene (a quarter of the loop's pixels: it raytraces its views)
+TOOLS_PROFILE = dict(height=840, width=1296, n=200_000)
+TOOLS_CLI_SIZE = "640x416"
 # the DMA microbenchmark: scripts/microbench_dma.py's defaults, and an odd
 # chunk count for the checks
 DMA_N, DMA_CAP, DMA_VPU_ITERS, DMA_ODD_CHUNKS = 262_144, 1_048_576, 24, 1001
@@ -507,10 +530,11 @@ def train_phase(kernels_of, tr, steps):
     return state, losses, totals
 
 
-def loop_config(model_path, iterations=LOOP_ITERS):
+def loop_config(model_path, iterations=LOOP_ITERS,
+                checkpoints=(LOOP_CHECKPOINT,)):
     """The loop's schedule: bsz 2, densify every 100 from 100 to
-    ``iterations``, an opacity reset every 200, a checkpoint at 200, no
-    eval, PLY save or checkpoint beyond that."""
+    ``iterations``, an opacity reset every 200, a checkpoint at each of
+    ``checkpoints`` (200), no eval or PLY save."""
     from grendel_tpu_torch.config import TrainConfig
 
     cfg = TrainConfig()
@@ -521,23 +545,31 @@ def loop_config(model_path, iterations=LOOP_ITERS):
     o.densify_from_iter, o.densification_interval = 100, 100
     o.densify_until_iter = iterations
     o.opacity_reset_interval = 200
-    cfg.checkpoint_iterations = [LOOP_CHECKPOINT]
+    cfg.checkpoint_iterations = list(checkpoints)
     cfg.test_iterations, cfg.save_iterations = [], []
     cfg.log_interval = 50
     return cfg.finalize()
 
 
 def capture_kernel_inputs(calls):
-    """Within the ``with`` block, record what the training step hands K2
-    (its inputs, which are K1's, K1's outputs and the loss's cotangents)
-    and K3 (its int32 channels) in ``calls["K2"]`` and ``calls["K3"]``.
-    The kernels still run, and count their launches, as they would."""
+    """Within the ``with`` block, record what the path hands K1 (its
+    inputs and outputs), K2 (its inputs, which are K1's, K1's outputs and
+    the loss's cotangents) and K3 (its int32 channels) in ``calls["K1"]``,
+    ``calls["K2"]`` and ``calls["K3"]``. The kernels still run, and count
+    their launches, as they would."""
     import contextlib
 
     from grendel_tpu_torch.ops import isect as I
     from grendel_tpu_torch.ops import rasterize_cuda
 
-    real = (rasterize_cuda._blend_vjp, I.cumsum_i32_multi, I.cumsum_i32)
+    real = (rasterize_cuda._blend_vjp, I.cumsum_i32_multi, I.cumsum_i32,
+            rasterize_cuda._blend)
+
+    def blend(*args):
+        out = real[3](*args)
+        calls["K1"].append(tuple(a.detach() if torch.is_tensor(a) else a
+                                 for a in args + out))
+        return out
 
     def blend_vjp(*args):
         calls["K2"].append(tuple(a.detach() if torch.is_tensor(a) else a
@@ -554,14 +586,32 @@ def capture_kernel_inputs(calls):
 
     @contextlib.contextmanager
     def patched():
-        calls["K2"], calls["K3"] = [], []
-        (rasterize_cuda._blend_vjp, I.cumsum_i32_multi,
-         I.cumsum_i32) = blend_vjp, scan_multi, scan_one
+        calls["K1"], calls["K2"], calls["K3"] = [], [], []
+        (rasterize_cuda._blend_vjp, I.cumsum_i32_multi, I.cumsum_i32,
+         rasterize_cuda._blend) = blend_vjp, scan_multi, scan_one, blend
         try:
             yield
         finally:
-            rasterize_cuda._blend_vjp, I.cumsum_i32_multi, I.cumsum_i32 = real
+            (rasterize_cuda._blend_vjp, I.cumsum_i32_multi, I.cumsum_i32,
+             rasterize_cuda._blend) = real
     return patched()
+
+
+def captured_k1_checks(what, calls_k1):
+    """K1 against its plain version on the inputs of each captured K1
+    call (K1 run again must give what the path got). Returns K1's max abs
+    error."""
+    k1_err = 0.0
+    for i, (m2d, con, col, op, ids, lo, hi, px0, py0, tw, th, mpt, c_total,
+            final_t) in enumerate(calls_k1):
+        col_k, t_k, e1 = k1_check(
+            f"{what}, call {i + 1} of {len(calls_k1)}",
+            (m2d, con, col, op, ids, None, px0, py0, tw, th, mpt),
+            dict(tile_lo=lo, tile_hi=hi))
+        require(torch.equal(col_k, c_total) and torch.equal(t_k, final_t),
+                f"K1 run again differs from the path's ({what})")
+        k1_err = max(k1_err, e1)
+    return k1_err
 
 
 def captured_blend_checks(what, calls_k2):
@@ -582,16 +632,17 @@ def captured_blend_checks(what, calls_k2):
     return k1_err, k2_err
 
 
-def loop_kernel_checks(calls):
-    """K1, K2 and K3 against their plain versions on the inputs one loop
-    step gave them. Returns each kernel's max abs error."""
+def loop_kernel_checks(calls, what="a loop step"):
+    """K1, K2 and K3 against their plain versions on the inputs one
+    training step (``what``) gave them. Returns each kernel's max abs
+    error."""
     require(len(calls["K2"]) == 1 and calls["K3"],
             f"captured {len(calls['K2'])} K2 and {len(calls['K3'])} K3 "
-            f"calls in one loop step")
-    k1_err, k2_err = captured_blend_checks("a loop step's tile lists",
+            f"calls in {what}")
+    k1_err, k2_err = captured_blend_checks(f"{what}'s tile lists",
                                            calls["K2"])
-    k3_err = scan_check("a loop step", calls["K3"])
-    print(f"# K3 scan (a loop step): bit-equal to plain in "
+    k3_err = scan_check(what, calls["K3"])
+    print(f"# K3 scan ({what}): bit-equal to plain in "
           f"{len(calls['K3'])} calls")
     return {"K1": k1_err, "K2": k2_err, "K3": k3_err}
 
@@ -707,12 +758,10 @@ def resume_check(trainer, dev, what):
     kind of Trainer, with densification off) and take two more steps."""
     import dataclasses
 
-    from grendel_tpu_torch.engine.checkpoint import find_latest_checkpoint
-
     cfg = trainer.cfg
-    ckpt = find_latest_checkpoint(cfg.model.model_path)
-    require(ckpt is not None and ckpt.endswith(str(LOOP_CHECKPOINT)),
-            f"{what}: checkpoint {ckpt}")
+    ckpt = os.path.join(cfg.model.model_path, "checkpoints",
+                        str(LOOP_CHECKPOINT))
+    require(os.path.isdir(ckpt), f"{what}: no checkpoint {ckpt}")
     cfg2 = dataclasses.replace(cfg, start_checkpoint=ckpt,
                                checkpoint_iterations=[])
     cfg2.opt = dataclasses.replace(cfg.opt, densify_from_iter=10 ** 9,
@@ -745,7 +794,10 @@ def loop_path(dev, tag, kernels_of, scene_kw, model_path,
           f"{len(scene.test_cameras)} held-out views at {scene_kw['width']}x"
           f"{scene_kw['height']}, {scene.point_cloud.points.shape[0]} initial "
           f"points, raytraced in {time.perf_counter() - t0:.1f} s")
-    trainer = Trainer(loop_config(model_path, iterations), scene, device=dev)
+    # a checkpoint at the end too: phase 12's tools run on the trained model
+    trainer = Trainer(loop_config(model_path, iterations,
+                                  (LOOP_CHECKPOINT, iterations)),
+                      scene, device=dev)
     calls = {}
     rec = train_loop(trainer, tag, kernels_of, iterations, "loop", calls)
     errs = loop_kernel_checks(calls)
@@ -970,7 +1022,6 @@ def distributed_path(dev, tag, kernels_of, cameras, tr, steps=DIST_STEPS):
     plain versions; K3 is held to its plain version on every scan of both
     simulations. Returns the printed numbers' record and each kernel's max
     abs error."""
-    import numpy as np
     import torch.distributed as dist
 
     from grendel_tpu_torch.engine.render import render_batch
@@ -1162,6 +1213,268 @@ def distributed_path(dev, tag, kernels_of, cameras, tr, steps=DIST_STEPS):
               f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before "
               f"{tag}")
     return record, sim_err
+
+
+def random_lpips_weights(seed):
+    """VGG16 LPIPS weights in ops/lpips.py's npz layout, random from a
+    seed (no pretrained weights are in the repository)."""
+    from grendel_tpu_torch.ops.lpips import _TAPS, _VGG16_PLAN
+
+    rng = np.random.default_rng(seed)
+    weights, in_ch = {}, 3
+    for i, (out_ch, _) in enumerate(_VGG16_PLAN):
+        weights[f"conv{i}_w"] = rng.normal(
+            scale=0.05, size=(out_ch, in_ch, 3, 3)).astype(np.float32)
+        weights[f"conv{i}_b"] = rng.normal(
+            scale=0.01, size=(out_ch,)).astype(np.float32)
+        in_ch = out_ch
+    for j, i in enumerate(_TAPS):
+        weights[f"lin{j}_w"] = rng.uniform(
+            size=(_VGG16_PLAN[i][0],)).astype(np.float32)
+    return weights
+
+
+def tools_path(dev, tag, kernels_of, ref, model_path, step_dev_ms):
+    """Phase 12: the tools on phase 7's trained model of the structured
+    scene, as a user runs them after training: ``ckpt_to_ply`` of the
+    iteration-300 checkpoint (the PLY's fields equal the checkpoint's);
+    ``render.py`` over all 10 views through ``main(argv)`` (K1 and K3 in
+    every batch and held against their plain versions on the first
+    batch's inputs; each PNG within one level of ``render_batch``'s
+    image); ``metrics.py`` on that tree (test PSNR within 0.02 dB of
+    ``Trainer.eval_psnr`` on the model); LPIPS on random weights, the card
+    within 1e-4 relative of the CPU; ``profile_step.py`` at the garden
+    shape (every stage finite and positive, K1-K3 where they belong, and
+    held against their plain versions on one ``full_step``'s and one
+    ``isect``'s inputs); and a 30-iteration CLI run with ``--nsys_profile
+    --log_memory_summary``. Returns the record, with each kernel's max
+    abs error over these checks."""
+    import dataclasses
+
+    from grendel_tpu_torch.cameras import batch_camera_arrays
+    from grendel_tpu_torch.engine import render as R
+    from grendel_tpu_torch.engine.checkpoint import load_checkpoint_sharded
+    from grendel_tpu_torch.engine.gaussian_io import (load_ply,
+                                                      params_to_ply_fields)
+    from grendel_tpu_torch.engine.trainer import Trainer
+    from grendel_tpu_torch.ops.lpips import LPIPS
+    from grendel_tpu_torch.scripts import (ckpt_to_ply, metrics,
+                                           profile_step, render, train)
+    from grendel_tpu_torch.utils.ply import read_ply
+    from grendel_tpu_torch.utils.png import read_png
+
+    rec = {}
+    scene = ref["scene"]
+    # the trained model: the loop's last checkpoint (the one of iteration
+    # 200 follows an opacity reset, and its views are dark)
+    ckpt = os.path.join(model_path, "checkpoints", str(LOOP_ITERS))
+    # --- checkpoint to PLY
+    ply = ckpt_to_ply.main(["-m", model_path])
+    state = load_checkpoint_sharded(ckpt, 1, device="cpu")
+    require(int(state.iteration) == LOOP_ITERS
+            and ply.endswith(os.path.join(f"iteration_{LOOP_ITERS}",
+                                          "point_cloud.ply")),
+            f"ckpt_to_ply wrote {ply}")
+    want = params_to_ply_fields(state.params, state.alive)
+    got = read_ply(ply)
+    require(list(got) == list(want) and all(
+        np.array_equal(got[k], want[k]) for k in want),
+        "ckpt_to_ply's PLY differs from the checkpoint")
+    print(f"# ckpt_to_ply: {got['x'].shape[0]} Gaussians of iteration "
+          f"{int(state.iteration)}, every field equal to the checkpoint's")
+
+    # --- the render tool, in process, over every view
+    with open(os.path.join(model_path, "args.json"), "w") as f:
+        json.dump(dict(synthetic_structured=True, source_path="",
+                       synthetic_size=f"{LOOP_SCENE['width']}x"
+                                      f"{LOOP_SCENE['height']}",
+                       synthetic_cams=LOOP_SCENE["n_cams"],
+                       llffhold=LOOP_SCENE["llffhold"],
+                       synthetic_points=LOOP_SCENE["n_init_points"],
+                       seed=LOOP_SCENE["seed"], sh_degree=3,
+                       white_background=False), f)
+    real_render_batch = R.render_batch
+    batches, calls = [], {}
+
+    def counted(*args, **kw):
+        for wrapper in kernels_of.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        if batches:
+            out = real_render_batch(*args, **kw)
+        else:                   # the first batch's kernel inputs are kept
+            with capture_kernel_inputs(calls):
+                out = real_render_batch(*args, **kw)
+        torch.cuda.synchronize()
+        batches.append((time.perf_counter() - t0,
+                        {k: w.launches for k, w in kernels_of.items()}))
+        return out
+
+    R.render_batch = counted
+    try:
+        t0 = time.perf_counter()
+        render.main(["-m", model_path, "--bsz", str(BSZ), "--device",
+                     str(dev)])
+        wall = time.perf_counter() - t0
+    finally:
+        R.render_batch = real_render_batch
+    n_views = len(scene.train_cameras) + len(scene.test_cameras)
+    require(len(batches) == -(-len(scene.train_cameras) // BSZ)
+            + -(-len(scene.test_cameras) // BSZ),
+            f"render tool ran {len(batches)} batches")
+    require(all(n["K1"] > 0 and n["K3"] > 0 for _, n in batches),
+            f"a render batch did not launch K1 and K3: {batches}")
+    rec["render_ms_per_view"] = 1e3 * sum(t for t, _ in batches) / n_views
+    rec["render_wall_ms_per_view"] = 1e3 * wall / n_views
+    print(f"# render tool: {n_views} views at {LOOP_SCENE['width']}x"
+          f"{LOOP_SCENE['height']} in {len(batches)} batches of {BSZ}, "
+          f"launches per batch {[n for _, n in batches]}; "
+          f"{rec['render_ms_per_view']:.3f} ms per view in render_batch "
+          f"(synchronized), {rec['render_wall_ms_per_view']:.1f} ms per view "
+          f"of the tool's wall (scene raytrace and PNG files included) {tag}")
+    # K1 and K3 against their plain versions on the first batch's inputs:
+    # 16x16 tiles at 1280x832 on the exact-size lists
+    require(len(calls["K1"]) == 1 and calls["K3"] and not calls["K2"],
+            f"captured {len(calls['K1'])} K1, {len(calls['K2'])} K2 and "
+            f"{len(calls['K3'])} K3 calls in one render batch")
+    errs = {"K1": captured_k1_checks("a render-tool batch", calls["K1"]),
+            "K2": 0.0, "K3": scan_check("a render-tool batch", calls["K3"])}
+    print(f"# K3 scan (a render-tool batch): bit-equal to plain in "
+          f"{len(calls['K3'])} calls")
+    calls.clear()
+    # each PNG against render_batch's image of the view, static lists
+    params, alive = load_ply(ply, device=dev)
+    cfg = R.RenderConfig(img_h=LOOP_SCENE["height"], img_w=LOOP_SCENE["width"],
+                         tile_w=16, tile_h=16, isect_capacity=1 << 22,
+                         max_per_tile=2048)
+    worst = 0
+    for split, cams in (("train", scene.train_cameras),
+                        ("test", scene.test_cameras)):
+        d = os.path.join(model_path, split, f"ours_{LOOP_ITERS}",
+                         "renders")
+        for i, cam in enumerate(cams):
+            with torch.no_grad():
+                img = R.render_batch(params, alive, batch_camera_arrays(
+                    [cam], dev), 3, cfg)[0][0]
+            ref_u8 = (torch.clamp(img, 0, 1).cpu().numpy().transpose(1, 2, 0)
+                      * 255 + 0.5).astype(np.uint8)
+            png = read_png(os.path.join(d, f"{i:05d}.png"))
+            worst = max(worst, int(np.abs(png.astype(int)
+                                          - ref_u8.astype(int)).max()))
+    print(f"# render tool PNGs against render_batch: largest difference "
+          f"{worst} of 255")
+    require(worst <= 1, f"a rendered PNG differs from render_batch by "
+            f"{worst} levels")
+
+    # --- the metrics tool with LPIPS, against the loop's eval
+    wpath = os.path.join(model_path, "lpips_random.npz")
+    weights = random_lpips_weights(0)
+    np.savez(wpath, **weights)
+    t0 = time.perf_counter()
+    metrics.main(["-m", model_path, "--lpips_weights", wpath, "--device",
+                  str(dev)])
+    rec["metrics_s"] = time.perf_counter() - t0
+    with open(os.path.join(model_path, "results_test.json")) as f:
+        res = json.load(f)[f"ours_{LOOP_ITERS}"]
+    cfg_ev = dataclasses.replace(ref["trainer"].cfg, start_checkpoint=ckpt,
+                                 checkpoint_iterations=[])
+    evaluator = Trainer(cfg_ev, scene, device=dev)
+    ev = evaluator.eval_psnr(scene.test_cameras, 3)
+    d_psnr = res["PSNR"] - ev["psnr"]
+    rec["psnr"], rec["eval_psnr"] = res["PSNR"], ev["psnr"]
+    print(f"# metrics tool, test split: PSNR {res['PSNR']:.4f} dB against "
+          f"eval_psnr {ev['psnr']:.4f} dB ({d_psnr:+.4f}), SSIM "
+          f"{res['SSIM']:.4f}, LPIPS (random weights) {res['LPIPS']:.6f}; "
+          f"{rec['metrics_s']:.2f} s for {n_views} views")
+    require(abs(d_psnr) <= 0.02, f"metrics PSNR {res['PSNR']} vs eval_psnr "
+            f"{ev['psnr']}")
+    require(res["LPIPS"] is not None and np.isfinite(res["LPIPS"]),
+            f"metrics LPIPS {res['LPIPS']}")
+    # LPIPS on the card (TF32 allowed globally: the module turns it off)
+    # against the CPU on one pair, the central 320x208 crop of view 0
+    d = os.path.join(model_path, "test", f"ours_{LOOP_ITERS}")
+    y0 = (LOOP_SCENE["height"] - 208) // 2
+    x0 = (LOOP_SCENE["width"] - 320) // 2
+    pair = [torch.as_tensor(read_png(os.path.join(d, sub, "00000.png"))
+                            [y0:y0 + 208, x0:x0 + 320].transpose(2, 0, 1)
+                            .astype(np.float32) / 255.0)
+            for sub in ("renders", "gt")]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on_card = float(LPIPS(weights, device=dev)(*(x.to(dev)
+                                                     for x in pair)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    on_cpu = float(LPIPS(weights, device="cpu")(*pair))
+    require(on_cpu > 0, "the LPIPS pair is two equal images")
+    lp_rel = abs(on_card / on_cpu - 1.0)
+    print(f"# LPIPS card {on_card:.8f} vs CPU {on_cpu:.8f}: relative err "
+          f"{lp_rel:.3e}")
+    require(lp_rel <= 1e-4, f"LPIPS card vs CPU relative err {lp_rel}")
+
+    # --- the step profiler at the garden shape
+    prof_dir = os.path.join(model_path, "profile_trace")
+    prof = profile_step.main([
+        "--height", str(TOOLS_PROFILE["height"]), "--width",
+        str(TOOLS_PROFILE["width"]), "--n", str(TOOLS_PROFILE["n"]), "--bsz",
+        str(BSZ), "--steps", "10", "--trace", prof_dir, "--device",
+        str(dev)])
+    times, launches = prof["times"], prof["launches"]
+    rec["profile"] = times
+    print(f"# profile_step: full_step {times['full_step']:.3f} ms (CUDA "
+          f"events), stage sum {prof['stage_sum']:.3f} ms "
+          f"({prof['stage_sum'] / times['full_step']:.1%} of it); phase 9's "
+          f"train_step device time {step_dev_ms:.3f} ms {tag}")
+    require(all(np.isfinite(v) and v > 0 for v in times.values()),
+            f"a profile stage is not finite and positive: {times}")
+    for stage, need in (("full_step", "K1 K2 K3"), ("isect", "K3"),
+                        ("raster_fwd", "K1"), ("raster_fwd_bwd", "K1 K2"),
+                        ("render_batch_fwd", "K1 K3")):
+        require(all(launches[stage][k] > 0 for k in need.split()),
+                f"profile stage {stage} did not launch {need}: "
+                f"{launches[stage]}")
+    require(os.path.exists(os.path.join(prof_dir, "trace_rk0.json")),
+            "profile_step wrote no trace")
+    # K1-K3 against their plain versions on one full_step's inputs and K3
+    # on one isect call's, at the garden shape with 32x16 tiles
+    with capture_kernel_inputs(calls):
+        prof["stages"]["full_step"]()
+    step_errs = loop_kernel_checks(calls, "a profile_step full_step")
+    with capture_kernel_inputs(calls):
+        prof["stages"]["isect"]()
+    require(calls["K3"] and not calls["K1"] and not calls["K2"],
+            f"captured {len(calls['K3'])} K3 calls in one isect stage")
+    step_errs["K3"] = max(step_errs["K3"],
+                          scan_check("a profile_step isect", calls["K3"]))
+    print(f"# K3 scan (a profile_step isect): bit-equal to plain in "
+          f"{len(calls['K3'])} calls")
+    calls.clear()
+    del prof["stages"]
+    rec["errs"] = {k: max(e, step_errs[k]) for k, e in errs.items()}
+
+    # --- a short CLI run with the profiler trace and the memory lines
+    run = os.path.join(model_path, "cli")
+    t0 = time.perf_counter()
+    train.main(["--synthetic_structured", "--synthetic_size", TOOLS_CLI_SIZE,
+                "--synthetic_cams", "10", "--llffhold", "5",
+                "--synthetic_points", "20000", "--iterations", "30",
+                "--bsz", str(BSZ), "--densify_from_iter", "1000",
+                "--test_iterations", "30", "--save_iterations", "30",
+                "--nsys_profile", "--log_memory_summary", "--log_interval",
+                "10", "--device", str(dev), "-q", "-m", run])
+    rec["cli_s"] = time.perf_counter() - t0
+    with open(os.path.join(run, "trace", "trace_rk0.json")) as f:
+        trace_text = f.read()
+    with open(os.path.join(run, "python_ws=1_rk=0.log")) as f:
+        mem = [ln for ln in f if ": memory compiled_reserved=" in ln]
+    print(f"# CLI run, 30 iterations at {TOOLS_CLI_SIZE} with --nsys_profile "
+          f"--log_memory_summary: {rec['cli_s']:.1f} s; trace "
+          f"{len(trace_text) / 2**20:.1f} MiB names K1: "
+          f"{'rasterize_fwd' in trace_text}; memory lines "
+          f"{[ln.split('] ')[1].strip() for ln in mem]}")
+    require("rasterize_fwd" in trace_text, "the CLI's trace names no K1")
+    require(len(mem) == 3, f"{len(mem)} memory lines in 30 iterations")
+    return rec
 
 
 def kernel_launches(rows):
@@ -1438,9 +1751,10 @@ def main(argv=None):
     stamp(t_start, "render and step timed")
 
     # --- 7. the host training loop (this slice's main path) ---------------
-    with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
-        loop_rec, loop_errs, step_k2_in = loop_path(
-            dev, tag, kernels_of, LOOP_SCENE, tmp)
+    # its model directory stays for the tools of phase 12
+    loop_dir = tempfile.TemporaryDirectory(dir=ROOT / "output")
+    loop_rec, loop_errs, step_k2_in = loop_path(
+        dev, tag, kernels_of, LOOP_SCENE, loop_dir.name)
     loop_launches = loop_rec["launches"]
     if args.save_k2:
         tile_in = blend_in[:5] + (blend_kw["tile_lo"], blend_kw["tile_hi"])
@@ -1478,8 +1792,19 @@ def main(argv=None):
     print(f"# distributed loop: launches {dist_loop_rec['launches']} over "
           f"{LOOP_ITERS // BSZ} steps ({dist_loop_rec['step_launches']} per "
           f"step) {tag}")
-    del loop_rec["scene"], loop_rec["trainer"]
     stamp(t_start, "distributed loop checked")
+
+    # --- 12. the tools on phase 7's model -----------------------------------
+    t12 = time.perf_counter()
+    tools_rec = tools_path(dev, tag, kernels_of, loop_rec, loop_dir.name,
+                           step_dev_ms)
+    tools_errs = tools_rec["errs"]
+    del loop_rec["scene"], loop_rec["trainer"]
+    loop_dir.cleanup()
+    print(f"# tools (phase 12): {time.perf_counter() - t12:.1f} s in all; "
+          f"render {tools_rec['render_ms_per_view']:.3f} ms per view "
+          f"{tag}")
+    stamp(t_start, "tools checked")
 
     # --- 9. kernel timings -------------------------------------------------
     timer = Timer()
@@ -1589,15 +1914,17 @@ def main(argv=None):
     # launches: K1-K3 over the host training loop's steps, K4 and K5 over
     # the microbenchmark's run; max_abs_err: the larger of the checks on
     # the garden's inputs, on the last step of each host loop (phases 7 and
-    # 11) and on the simulated distributed steps (K1-K3), and of the
-    # microbenchmark's own check and the odd chunk count's (K4, K5)
+    # 11), on the simulated distributed steps and on the tools' inputs
+    # (phase 12: a render-tool batch, a profile_step full_step and isect)
+    # (K1-K3), and of the microbenchmark's own check and the odd chunk
+    # count's (K4, K5)
     kernels_line = {"kernels": [
         {"name": "rasterize_fwd", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/rasterize_fwd.cu",
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:181",
          "launches": loop_launches["K1"],
          "max_abs_err": max(k1_err, loop_errs["K1"], dist_errs["K1"],
-                            dist_loop_errs["K1"]),
+                            dist_loop_errs["K1"], tools_errs["K1"]),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
         # K3's times are per render_batch (a train_step builds its tile
@@ -1608,7 +1935,7 @@ def main(argv=None):
          "replaces": "grendel_tpu/ops/scan_pallas.py:65",
          "launches": loop_launches["K3"],
          "max_abs_err": max(k3_err, loop_errs["K3"], dist_errs["K3"],
-                            dist_loop_errs["K3"]),
+                            dist_loop_errs["K3"], tools_errs["K3"]),
          "ms": k3_row["ms"], "device_ms": k3_row["device_ms"],
          "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
@@ -1618,7 +1945,7 @@ def main(argv=None):
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:262",
          "launches": loop_launches["K2"],
          "max_abs_err": max(k2_err, loop_errs["K2"], dist_errs["K2"],
-                            dist_loop_errs["K2"]),
+                            dist_loop_errs["K2"], tools_errs["K2"]),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
         # library: torch.sum over the int32 view (K4), the PyTorch row

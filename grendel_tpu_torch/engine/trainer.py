@@ -44,7 +44,16 @@ densify round is due.
 
 With ``local_sampling`` the batches come from ``next_batch_grouped`` with
 one group, and ``save_strategy_history`` writes the (whole-batch)
-division of every step, as the JAX loop does on one device.
+division of every step, as the JAX loop does on one device. As in the
+JAX loop, a dataset below ``preload_dataset_to_gpu_threshold`` GB (or
+``preload_dataset_to_gpu``) switches ``local_sampling`` and distributed
+storage off (:meth:`Trainer._apply_preload_rule`).
+
+``nsys_profile`` traces about 10 steps with ``torch.profiler`` into
+``<model_path>/trace`` and ``log_memory_summary`` adds the card's
+largest reservation to the memory line. Under autograd's anomaly mode
+(the CLI's ``--detect_anomaly``, the JAX script's ``jax_debug_nans``)
+the loop raises on a non-finite loss.
 
 Not ported, being TPU workarounds: the recompile generation tags, the
 blend-budget tuner (the render gets no post-cull budget), the trainer
@@ -72,7 +81,7 @@ from ..models.gaussian_model import (GaussianParams, init_from_pcd,
                                      pad_to_capacity, round_capacity)
 from ..models.optimizer import AdamState, scaled_lrs
 from ..utils.hbm import mantissa_round_cap
-from ..utils.timer import End2endTimer, Timer
+from ..utils.timer import End2endTimer, Timer, Tracer
 from .checkpoint import (load_checkpoint_sharded, load_tuner_state,
                          save_checkpoint, save_tuner_state)
 from .gaussian_io import save_ply
@@ -93,17 +102,6 @@ def _batched_psnr_l1(imgs: torch.Tensor, gt_u8: torch.Tensor):
             torch.mean(torch.abs(pred - gt), dim=ax))
 
 
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise on an option whose path the port does not have yet."""
-    not_ported = {
-        "nsys_profile": cfg.nsys_profile,
-        "log_memory_summary": cfg.log_memory_summary,
-    }
-    on = [k for k, v in not_ported.items() if v]
-    if on:
-        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
-
-
 class Trainer:
     """End-to-end training of one scene on one device (see the module's
     docstring)."""
@@ -112,7 +110,6 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, scene, device=DEFAULT_DEVICE,
                  log_file=None):
-        check_ported(cfg)
         self.cfg = cfg
         self.scene = scene
         self.device = dev = resolve_device(device)
@@ -157,6 +154,11 @@ class Trainer:
             [1.0, 1.0, 1.0] if cfg.model.white_background else [0.0] * 3,
             dtype=torch.float32, device=dev)
         self._bg_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        # whole images per rank when pixel sharding is off or each rank
+        # draws its own cameras
+        d = cfg.dist
+        self._whole_image_division = self.world > 1 and (
+            not d.image_distribution or d.local_sampling)
 
         self._init_model()
         self.dataset = SceneDataset(scene.train_cameras, seed=cfg.seed)
@@ -168,6 +170,31 @@ class Trainer:
         self._cam_bank = batch_camera_arrays(cams, dev)
         self._cam_index = {c.uid: i for i, c in enumerate(cams)}
         self._gt_bank = self._make_gt_bank(cams)
+        self._apply_preload_rule()
+
+    def _apply_preload_rule(self):
+        """The JAX loop's dataset preload: with ``preload_dataset_to_gpu``,
+        or a dataset (training and held-out views, 3 bytes a pixel) below
+        ``preload_dataset_to_gpu_threshold`` GB, ``local_sampling`` and
+        ``distributed_dataset_storage`` are switched off and the division
+        recomputed (the reference's train_internal.py:133-155). The ground
+        truth is on the device in any case, so only the semantics
+        change."""
+        d, scene = self.cfg.dist, self.scene
+        n_cams = len(scene.train_cameras) + len(scene.test_cameras)
+        ds_gb = n_cams * self.img_h * self.img_w * 3 / 1e9
+        thresh = d.preload_dataset_to_gpu_threshold
+        if not (d.preload_dataset_to_gpu or (thresh > 0 and ds_gb < thresh)):
+            return
+        if d.local_sampling:
+            self._log("preload_dataset_to_gpu: disabling local_sampling "
+                      "(ref train_internal.py:150-152)")
+            d.local_sampling = False
+            self._whole_image_division = (
+                self.world > 1 and not d.image_distribution)
+        d.distributed_dataset_storage = False
+        self._log(f"preloaded {len(scene.train_cameras)} GT images "
+                  f"({ds_gb:.2f} GB dataset) to device memory")
 
     def _point_cloud(self) -> PointCloud:
         """The scene's initial points, less a random share with
@@ -344,11 +371,24 @@ class Trainer:
         t_start = time.time()
         it = int(self.state.iteration)
         it0 = it                        # rates count this run's iterations
+        # about 10 steps traced into <model_path>/trace, where the JAX
+        # loop's jax.profiler trace falls (the reference's --nsys_profile)
+        trace = Tracer(os.path.join(cfg.model.model_path, "trace"),
+                       self.rank, self.device,
+                       it + max(2 * bsz, 4) if cfg.nsys_profile else None,
+                       10 * bsz)
         self.end2end = End2endTimer()
         self.end2end.start()
         while it < end:
+            if trace.at(it):
+                self._log(f"profiler trace written to {trace.directory}")
             sh_degree = min(it // 1000, cfg.model.sh_degree)
             metrics = self._train_step(it, sh_degree)
+            if torch.is_anomaly_enabled() and not bool(
+                    torch.isfinite(metrics["loss"])):
+                raise FloatingPointError(
+                    f"iter {it}: non-finite loss {float(metrics['loss'])} "
+                    f"(autograd anomaly mode)")
 
             # the schedule fires on the pre-increment, 1-based iteration
             sched_it = it + 1
@@ -370,8 +410,6 @@ class Trainer:
                           f"it/s={ips:.2f}")
                 if cfg.enable_timer:
                     self._log("timers: " + self.timer.report())
-                if cfg.check_gpu_memory or cfg.check_cpu_memory:
-                    self._log_memory(it)
 
             if (not o.disable_auto_densification
                     and o.densify_from_iter < sched_it <= o.densify_until_iter
@@ -400,7 +438,12 @@ class Trainer:
             if any(it - bsz < t <= it for t in cfg.checkpoint_iterations):
                 self.save_checkpoint(it)
             self.end2end.start()
+            if ((cfg.check_gpu_memory or cfg.check_cpu_memory
+                 or cfg.log_memory_summary) and it % cfg.log_interval < bsz):
+                self._log_memory(it)
 
+        if trace.stop():
+            self._log(f"profiler trace written to {trace.directory}")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # the last step's time too
         self.end2end.pause()
@@ -555,18 +598,28 @@ class Trainer:
         return False
 
     def _log_memory(self, it: int):
+        """The JAX loop's memory line, field for field: ``hbm_in_use`` and
+        ``peak`` (--check_gpu_memory), ``cpu_maxrss`` (--check_cpu_memory)
+        and ``compiled_reserved`` (--log_memory_summary). The port compiles
+        no step, so ``compiled_reserved`` is the most the caching
+        allocator has reserved on the card (``max_memory_reserved``). The
+        device fields are left out on the CPU."""
+        cfg, gib = self.cfg, 2 ** 30
+        on_card = self.device.type == "cuda"
         parts = []
-        if self.cfg.check_gpu_memory and self.device.type == "cuda":
-            gib = 2 ** 30
+        if cfg.check_gpu_memory and on_card:
             parts.append(
-                f"device_in_use="
+                f"hbm_in_use="
                 f"{torch.cuda.memory_allocated(self.device) / gib:.2f}GB "
                 f"peak={torch.cuda.max_memory_allocated(self.device) / gib:.2f}GB")
-        if self.cfg.check_cpu_memory:
+        if cfg.check_cpu_memory:
             import resource
 
             rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
             parts.append(f"cpu_maxrss={rss_kb / 2**20:.2f}GB")
+        if cfg.log_memory_summary and on_card:
+            parts.append(f"compiled_reserved="
+                         f"{torch.cuda.max_memory_reserved(self.device) / gib:.2f}GB")
         if parts:
             self._log(f"iter {it}: memory " + " ".join(parts))
 

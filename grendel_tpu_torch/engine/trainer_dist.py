@@ -91,8 +91,6 @@ class MultiRankTrainer(Trainer):
             dev = torch.device("cuda", torch.cuda.current_device())
         d = cfg.dist
         self.sharded = d.gaussians_distribution and self.world > 1
-        self._whole_image_division = self.world > 1 and (
-            not d.image_distribution or d.local_sampling)
         self._trainers: dict = {}
         self._eval_trainers: dict = {}
         self._pending = None            # the previous step's telemetry

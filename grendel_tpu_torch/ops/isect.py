@@ -18,6 +18,10 @@ on the same projected splats. Entry buffers have a fixed ``capacity``:
 The scatter-delta + scan expansion is the JAX package's structure, kept so
 the two agree bit for bit; sorts and searches are PyTorch library calls,
 as they were XLA's in the JAX package.
+
+A ``capacity`` of 0 sizes the entry list to the entries there are (per
+camera for the blocked lists), which costs one read of the count on the
+host; nothing is dropped. The render tool takes lists of that size.
 """
 
 from __future__ import annotations
@@ -201,6 +205,12 @@ def _unpack_entries(e, startb, packedb):
     return x0b + dx, y0b + dy
 
 
+def _exact(capacity: int, total: torch.Tensor) -> int:
+    """``capacity``, or with 0 the count ``total`` read to the host (at
+    least 1)."""
+    return capacity if capacity > 0 else max(int(total), 1)
+
+
 def _searchsorted(sorted_keys, n: int):
     return torch.searchsorted(sorted_keys, _arange(n, sorted_keys.device),
                               side="left", out_int32=True)
@@ -221,6 +231,7 @@ def isect_tiles(means2d, radii, depths, tile_w: int, tile_h: int,
     counts = spanx * spany
     cum = cumsum_i32(counts)
     total = cum[-1]
+    capacity = _exact(capacity, total)
 
     # 3. expand: entry e belongs to depth rank g with cum[g-1] <= e < cum[g]
     e = _arange(capacity, dev)
@@ -282,6 +293,7 @@ def isect_tile_rows(means2d, radii, depths, cam_ids, row_lo, row_hi,
     counts = spanx * torch.clamp(ty_hi - ty_lo, min=0)
     cum = cumsum_i32(counts)
     total = cum[-1]
+    capacity = _exact(capacity, total)
 
     e = _arange(capacity, dev)
     seg_starts = cum - counts
@@ -326,7 +338,6 @@ def isect_tile_rows_blocked(means2d, radii, depths, n_cams: int,
         raise ValueError("universe and capacity must divide by n_cams")
     dev = depths.device
     n_univ = m // n_cams
-    block = capacity // n_cams
     numt = tiles_x * tiles_y
     num_slots = n_cams * numt
     kspace = n_cams * (numt + 1)     # per-camera slots + 1 sentinel key
@@ -347,6 +358,8 @@ def isect_tile_rows_blocked(means2d, radii, depths, n_cams: int,
     cam_ends = cum[(cams + 1) * n_univ - 1]
     base = torch.cat([cam_ends.new_zeros(1), cam_ends[:-1]])
     cam_tot = cam_ends - base                 # (B,) true per-camera demand
+    block = _exact(capacity // n_cams, torch.max(cam_tot))
+    capacity = n_cams * block
     starts_blocked = (cum - counts) - torch.repeat_interleave(base, n_univ) \
         + cam_of_g * block
     # scatter positions clamp into the NEXT block start: an overflowed

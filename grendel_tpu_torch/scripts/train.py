@@ -101,6 +101,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="parsed; the replicated gradients are one "
                         "all-reduce")
     p.add_argument("--local_sampling", action="store_true")
+    p.add_argument("--preload_dataset_to_gpu", action="store_true",
+                   help="switches local_sampling and distributed storage "
+                        "off; the ground truth is on the device in any case")
+    p.add_argument("--preload_dataset_to_gpu_threshold", type=int, default=10,
+                   help="GB; datasets smaller than this are preloaded as if "
+                        "by --preload_dataset_to_gpu (<=0: never)")
     p.add_argument("--save_strategy_history", action="store_true")
     p.add_argument("--grad_normalization_mode", type=str, default="none",
                    choices=["none", "divide_by_visible_count",
@@ -114,8 +120,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="log train-only wall time excluding eval/save")
     p.add_argument("--check_gpu_memory", action="store_true")
     p.add_argument("--check_cpu_memory", action="store_true")
+    p.add_argument("--log_memory_summary", action="store_true",
+                   help="the card's largest reservation in the memory line")
+    p.add_argument("--nsys_profile", action="store_true",
+                   help="a torch.profiler trace of about 10 steps into "
+                        "<model_path>/trace")
     p.add_argument("--enable_timer", action="store_true",
                    help="per-stage device times logged every log_interval")
+    p.add_argument("--zhx_time", action="store_true",
+                   help="the reference's alias of --enable_timer")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--zhx_debug", action="store_true",
+                   help="the reference's alias of --debug")
+    p.add_argument("--detect_anomaly", action="store_true",
+                   help="autograd's anomaly mode, and a raise on a "
+                        "non-finite loss")
+    p.add_argument("--multiprocesses_image_loading", type=int, default=1,
+                   help="0 = one thread decodes the ground truth")
+    p.add_argument("--time_image_loading", action="store_true")
     p.add_argument("--quiet", "-q", action="store_true")
     p.add_argument("--log_folder", type=str, default="",
                    help="log file directory (default: model_path)")
@@ -181,6 +203,8 @@ def args_to_config(a):
     d.image_distribution = bool(a.image_distribution)
     d.distributed_save = bool(a.distributed_save)
     d.distributed_dataset_storage = bool(a.distributed_dataset_storage)
+    d.preload_dataset_to_gpu = a.preload_dataset_to_gpu
+    d.preload_dataset_to_gpu_threshold = a.preload_dataset_to_gpu_threshold
     for f in ("image_distribution_mode", "heuristic_decay",
               "no_heuristics_update", "adjust_strategy_warmp_iterations",
               "border_divpos_coeff", "redistribute_gaussians_mode",
@@ -192,7 +216,10 @@ def args_to_config(a):
     cfg.end2end_time = bool(a.end2end_time)
     cfg.check_gpu_memory, cfg.check_cpu_memory = (a.check_gpu_memory,
                                                   a.check_cpu_memory)
-    cfg.enable_timer, cfg.quiet = a.enable_timer, a.quiet
+    cfg.enable_timer, cfg.quiet = a.enable_timer or a.zhx_time, a.quiet
+    cfg.log_memory_summary, cfg.nsys_profile = (a.log_memory_summary,
+                                                a.nsys_profile)
+    cfg.pipeline.debug = a.debug or a.zhx_debug
     cfg.log_folder, cfg.log_interval = a.log_folder, a.log_interval
     cfg.test_iterations = list(a.test_iterations)
     cfg.save_iterations = list(a.save_iterations)
@@ -229,10 +256,16 @@ def make_scene(a, device):
             n_init_points=a.synthetic_points, device=device)
     from ..data import Scene
 
-    return Scene(a.source_path, images=a.images, eval_split=a.eval,
-                 llffhold=a.llffhold, white_background=a.white_background,
-                 num_train=a.num_train_cameras, num_test=a.num_test_cameras,
-                 seed=a.seed, resolution=a.resolution)
+    t_load = time.time()
+    scene = Scene(a.source_path, images=a.images, eval_split=a.eval,
+                  llffhold=a.llffhold, white_background=a.white_background,
+                  num_train=a.num_train_cameras, num_test=a.num_test_cameras,
+                  seed=a.seed, resolution=a.resolution,
+                  decode_workers=8 if a.multiprocesses_image_loading else 1)
+    if a.time_image_loading:
+        print(f"[timing] scene + GT decode: {time.time() - t_load:.2f}s",
+              flush=True)
+    return scene
 
 
 def main(argv=None) -> int:
@@ -254,14 +287,14 @@ def main(argv=None) -> int:
             "synthetic" if a.synthetic else
             os.path.basename(os.path.normpath(a.source_path)))
 
+    import torch
+
     from ..device import resolve_device
     from ..engine.checkpoint import find_latest_checkpoint
-    from ..engine.trainer import check_ported
     from ..engine.trainer_dist import make_trainer
     from ..parallel import comm
 
     cfg = args_to_config(a)
-    check_ported(cfg)
     device = resolve_device(a.device)
     if launched and device.type == "cuda":
         device = resolve_device(f"cuda:{os.environ.get('LOCAL_RANK', 0)}")
@@ -281,7 +314,10 @@ def main(argv=None) -> int:
                   "a") as log_file:
             trainer = make_trainer(cfg, scene, device=device,
                                    log_file=log_file)
-            trainer.train()
+            # the JAX script's jax_debug_nans: the loop raises on a
+            # non-finite loss under anomaly mode
+            with torch.autograd.set_detect_anomaly(a.detect_anomaly):
+                trainer.train()
             trainer.save_model(int(trainer.state.iteration))
     finally:
         comm.destroy_group()

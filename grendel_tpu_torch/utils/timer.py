@@ -6,10 +6,12 @@ every log interval; on a CUDA device each start and stop records a CUDA
 event on the current stream, and only :meth:`Timer.report` waits for the
 device. A disabled timer records nothing and never synchronises.
 ``End2endTimer`` adds up training wall time with eval and save paused.
+``Tracer`` records a ``torch.profiler`` trace of a span of iterations.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -86,3 +88,50 @@ class End2endTimer:
     def total_seconds(self) -> float:
         extra = (time.perf_counter() - self._since) if self._since else 0.0
         return self._total + extra
+
+
+class Tracer:
+    """A ``torch.profiler`` trace (host, and the card's kernels on a CUDA
+    device) of the iterations from ``start`` until ``length`` more have
+    begun, written as ``trace_rk{rank}.json`` (Chrome trace format) in
+    ``directory``. ``start`` None traces nothing."""
+
+    def __init__(self, directory: str, rank: int, device,
+                 start: Optional[int], length: int):
+        self.directory = directory
+        self.path = os.path.join(directory, f"trace_rk{rank}.json")
+        self._cuda = torch.device(device).type == "cuda"
+        self._start, self._length = start, length
+        self._stop: Optional[int] = None
+        self._prof = None
+
+    def at(self, it: int) -> bool:
+        """Call before the step of iteration ``it``: starts the trace when
+        ``it`` reaches the start, stops it ``length`` iterations later.
+        True when this call wrote the trace."""
+        if self._start is not None and it >= self._start:
+            self.begin()
+            self._start, self._stop = None, it + self._length
+        elif self._stop is not None and it >= self._stop:
+            return self.stop()
+        return False
+
+    def begin(self) -> None:
+        """Start the trace now; ``stop`` ends and writes it."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self._cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.__enter__()
+
+    def stop(self) -> bool:
+        """Stop a running trace and write it; True if one was running."""
+        if self._prof is None:
+            return False
+        if self._cuda:
+            torch.cuda.synchronize()
+        self._prof.__exit__(None, None, None)
+        os.makedirs(self.directory, exist_ok=True)
+        self._prof.export_chrome_trace(self.path)
+        self._prof, self._stop = None, None
+        return True

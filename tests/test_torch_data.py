@@ -422,10 +422,8 @@ def test_train_cli_flags():
     assert cfg.dist.grad_normalization_mode == "divide_by_visible_count"
     assert cfg.opt.densify_memory_limit_percentage == 0.75
     assert d.densify_memory_limit_percentage == 0.9
-    # the multi-device options now run: local sampling and the strategy
-    # history pass check_ported, and the distribution flags set the
+    # the multi-device options run: the distribution flags set the
     # configuration as the JAX script's do
-    from grendel_tpu_torch.engine.trainer import check_ported
     from scripts import train as jax_cli
 
     flags = ["--local_sampling", "--save_strategy_history",
@@ -440,7 +438,6 @@ def test_train_cli_flags():
              "--sync_grad_mode", "sparse", "--image_distribution_mode",
              "final"]
     cfg = train_cli.args_to_config(p.parse_args(flags))
-    check_ported(cfg)
     jcfg = jax_cli.args_to_config(jax_cli.build_parser().parse_args(flags))
     for f in ("local_sampling", "save_strategy_history",
               "gaussians_distribution", "image_distribution",

@@ -38,7 +38,7 @@ from grendel_tpu.testing import SyntheticScene as JScene
 from grendel_tpu_torch import convert
 from grendel_tpu_torch.config import TrainConfig
 from grendel_tpu_torch.engine.checkpoint import find_latest_checkpoint
-from grendel_tpu_torch.engine.trainer import Trainer, check_ported
+from grendel_tpu_torch.engine.trainer import Trainer
 
 SEED = 0
 
@@ -233,13 +233,40 @@ def test_resume_from_checkpoint(runs):
     ("local_sampling", True), ("save_strategy_history", True),
     ("grad_normalization_mode", "divide_by_visible_count")])
 def test_unported_options_raise(field, value):
-    """The options whose paths the port lacks raise; these three have
-    their paths now (grad_normalization_mode in engine/train.py, local
-    sampling and the strategy history in the loop), so check_ported
-    accepts them, and an option still without one raises."""
-    cfg = TrainConfig()
-    setattr(cfg.dist, field, value)
-    check_ported(cfg)
-    cfg.nsys_profile = True
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        check_ported(cfg)
+    """The options the port does not port, JAX's ``--platform`` and
+    ``--backend``, raise (argparse's exit) beside any command line, here
+    one with each option of the distributed step and the last training
+    flags, which the configuration carries."""
+    from grendel_tpu_torch.scripts import train as cli
+
+    flags = ([f"--{field}"] if value is True else [f"--{field}", value])
+    flags += ["--nsys_profile", "--log_memory_summary", "--detect_anomaly",
+              "--zhx_debug", "--zhx_time"]
+    p = cli.build_parser()
+    cfg = cli.args_to_config(p.parse_args(flags))
+    assert getattr(cfg.dist, field) == value
+    assert (cfg.nsys_profile and cfg.log_memory_summary and cfg.pipeline.debug
+            and cfg.enable_timer)
+    for refused in (["--platform", "cpu"], ["--backend", "jax"]):
+        with pytest.raises(SystemExit):
+            p.parse_args(flags + refused)
+
+
+def test_cli_takes_every_jax_flag_but_platform_backend():
+    """The port's training CLI has every option of JAX's scripts/train.py,
+    with its action, type, arity, default and destination, but
+    ``--platform`` and ``--backend``; its one option of its own is
+    ``--device``."""
+    from grendel_tpu_torch.scripts import train as cli
+    from scripts import train as jax_cli
+
+    def options(parser):
+        return {s: a for a in parser._actions for s in a.option_strings}
+
+    ours, theirs = options(cli.build_parser()), options(jax_cli.build_parser())
+    assert set(theirs) - set(ours) == {"--platform", "--backend"}
+    assert set(ours) - set(theirs) == {"--device"}
+    for flag in set(ours) & set(theirs):
+        a, b = ours[flag], theirs[flag]
+        assert ((type(a), a.dest, a.type, a.nargs, a.default)
+                == (type(b), b.dest, b.type, b.nargs, b.default)), flag

@@ -4,9 +4,9 @@ densify round after the 4th step; see tests/test_torch_trainer_dist.py):
 
   * whole-image division (``image_distribution`` off) and
     ``local_sampling`` (each rank draws from its own cameras, ``uid % 2``),
-    against grendel_tpu's 2-device ``Trainer`` (its ground truth packed on
-    the host, where JAX keeps ``local_sampling`` on; its densify threshold
-    times 2): the strategy history (cameras and division) equal at every
+    against grendel_tpu's 2-device ``Trainer`` (both with the preload
+    threshold at 0, so neither switches ``local_sampling`` off; JAX's
+    ground truth packed on the host; its densify threshold times 2): the strategy history (cameras and division) equal at every
     step, every loss within 1e-4 relative, the densify round's counts
     equal;
   * the memory guard with rank 1's memory share alone above the limit:
@@ -14,11 +14,14 @@ densify round after the 4th step; see tests/test_torch_trainer_dist.py):
     waits for the other;
   * the port's CLI under ``python -m torch.distributed.run`` with 2 CPU
     processes: it trains, and each rank writes its log, PLY and checkpoint
-    files.
+    files; then the port's render tool under torchrun, with each rank's
+    share of the per-rank PLY files, writes the PNGs it writes alone (bsz
+    2, the last batch padded).
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -59,16 +62,16 @@ def scene():
                                     "local_sampling"])
 def test_whole_image_division_matches_jax(option, scene, tmp_path,
                                           eight_devices):
-    dist = dict(SHORT["dist"])
+    # no preload in either package: it would switch local sampling off
+    dist = dict(SHORT["dist"], preload_dataset_to_gpu_threshold=0)
     if option == "local_sampling":
         dist["local_sampling"] = True
     else:
         dist["image_distribution"] = False
     config = dict(SHORT, dist=dist)
     (tmp_path / "jax").mkdir()
-    jt = JTrainer(jax_config(dict(config, dist=dict(
-        dist, preload_dataset_to_gpu_threshold=0)), str(tmp_path / "jax")),
-        scene, devices=eight_devices[:D])
+    jt = JTrainer(jax_config(config, str(tmp_path / "jax")), scene,
+                  devices=eight_devices[:D])
     j_losses = tap_jax(jt)
     jt.train()
     assert jt._whole_image_division
@@ -128,3 +131,26 @@ def test_cli_under_torchrun(tmp_path):
                 / f"point_cloud_rk{r}_ws2.ply").exists()
         assert (out / "checkpoints" / "8" / checkpoint_name(2, r)).exists()
     assert (out / "checkpoints" / "8" / "tuner.json").exists()
+
+    from PIL import Image
+
+    from grendel_tpu_torch.scripts import render
+
+    alone = tmp_path / "alone"
+    shutil.copytree(out, alone)
+    render.main(["-m", str(alone), "--device", "cpu", "--bsz", "2"])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "grendel_tpu_torch.scripts.render",
+           "-m", str(out), "--bsz", "2", "--device", "cpu"]
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    for split, n in (("train", 12), ("test", 2)):
+        d = os.path.join("ours_8", "renders")
+        names = sorted(os.listdir(alone / split / d))
+        assert names == sorted(os.listdir(out / split / d)) and len(names) == n
+        for fn in names:
+            a, b = (np.asarray(Image.open(m / split / d / fn))
+                    for m in (alone, out))
+            np.testing.assert_array_equal(a, b)
+            assert a.mean() > 1
