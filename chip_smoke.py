@@ -103,6 +103,26 @@ Phases, each of which fails the run:
      phase 9's train_step device time; a 30-iteration CLI run of the
      structured scene at 640x416 with --nsys_profile and
      --log_memory_summary (the trace names K1; three memory lines);
+  13. the repo's 4K configuration (examples/structured_4k.sh) through the
+     port's training CLI on the card: the raytraced structured scene at
+     5184x3360, 200,000 initial points, bsz 1, 32x16 tiles, densify every
+     100 from 100, 300 iterations, --check_gpu_memory
+     --log_memory_summary; its views cut from 12 to 6 (5 training, 1 held
+     out) for the host raytrace, printed on a ``# reduced:`` line. K1, K2
+     and K3 in every step and held against their plain versions, at
+     phases 3-4's tolerances, on the last step's inputs; every loss and
+     parameter finite; a densify round that clones or splits; held-out
+     PSNR rising; the entry ceiling read from the card logged and above
+     2^22, and no step over capacity at it. Printed: entries a camera
+     against the ceiling, the measured step's bytes and the loop's peak
+     as shares of the card, the bytes a step takes per entry of capacity
+     (its peak at four capacities), the memory guard, iterations/s, the
+     device time and launches per step (profiler, 3 steps), K1-K3 on the
+     4K step against their bounds, the set-up (raytrace) and phase
+     seconds. Then the same scene through ``MultiRankTrainer`` on a
+     one-rank NCCL group for 10 iterations: K1-K3 in every step, its own
+     ceiling above 2^22, its entries a rank beside it, no step over
+     capacity at it;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -160,6 +180,13 @@ DIST_STEPS = 3
 # structured scene (a quarter of the loop's pixels: it raytraces its views)
 TOOLS_PROFILE = dict(height=840, width=1296, n=200_000)
 TOOLS_CLI_SIZE = "640x416"
+# the 4K configuration (examples/structured_4k.sh) through the CLI; its 12
+# views cut to 6 (the structured scene's fewest: 3 rings of 3, less one
+# empty ring) for the host raytrace of the ground truth
+FOURK_SIZE, FOURK_POINTS, FOURK_CAMS, FOURK_HOLD = "5184x3360", 200_000, 6, 8
+FOURK_ITERS, FOURK_DIST_ITERS = 300, 10
+# entry capacities at which the tile lists set a step's peak memory
+FOURK_ENTRY_PROBE = 1 << 27
 # the DMA microbenchmark: scripts/microbench_dma.py's defaults, and an odd
 # chunk count for the checks
 DMA_N, DMA_CAP, DMA_VPU_ITERS, DMA_ODD_CHUNKS = 262_144, 1_048_576, 24, 1001
@@ -693,7 +720,9 @@ def train_loop(trainer, tag, kernels_of, iterations, what, calls=None):
     state = trainer.train(iterations)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # the loop resets the allocator's peak to read its steps' memory, and
+    # keeps the running maximum across those resets
+    peak_gib = (trainer.peak_memory()[0] - base) / 2**30
     train_secs = trainer.end2end.total_seconds()
     losses = torch.stack(losses).cpu()
     psnr_after = trainer.eval_psnr(scene.test_cameras, 0)
@@ -1477,6 +1506,309 @@ def tools_path(dev, tag, kernels_of, ref, model_path, step_dev_ms):
     return rec
 
 
+def fourk_path(dev, tag, kernels_of, timer, model_path, size=FOURK_SIZE,
+               points=FOURK_POINTS, cams=FOURK_CAMS, llffhold=FOURK_HOLD,
+               iterations=FOURK_ITERS, dist_iters=FOURK_DIST_ITERS):
+    """Phase 13: examples/structured_4k.sh's configuration through the
+    port's training CLI (``scripts/train.py main``) as a user runs it, its
+    views cut to ``cams``: K1-K3 in every step and held against their
+    plain versions on the last step's inputs, finite losses and
+    parameters, a densify round that clones or splits, held-out PSNR
+    rising, the entry ceiling read from the card above 2^22 and no step
+    over capacity at it; then the memory, time and kernel numbers of the
+    run, the bytes a step takes per entry of capacity, and the same scene
+    through ``MultiRankTrainer`` (``fourk_dist``). Returns the record and
+    each kernel's max abs error."""
+    from grendel_tpu_torch.engine import trainer_dist
+    from grendel_tpu_torch.engine.trainer import ISECT_CAP_CEILING
+    from grendel_tpu_torch.scripts import train
+
+    t_phase = time.perf_counter()
+    if iterations < FOURK_ITERS:
+        print(f"# reduced: iterations {FOURK_ITERS} -> {iterations}: the "
+              f"phase's time")
+    run = {"losses": [], "entries": []}
+    totals = {name: 0 for name in kernels_of}
+    calls = {}
+    real_make = trainer_dist.make_trainer
+
+    def make(*args, **kw):
+        tr = real_make(*args, **kw)
+        run["setup_s"] = time.perf_counter() - t0
+        sc = tr.scene
+        print(f"# reduced: views 12 -> "
+              f"{len(sc.train_cameras) + len(sc.test_cameras)} "
+              f"({len(sc.train_cameras)} training, {len(sc.test_cameras)} "
+              f"held out; --synthetic_cams {cams}): the host raytrace of "
+              f"the ground truth, {run['setup_s']:.1f} s for these with "
+              f"the scene's set-up")
+        run["psnr_before"] = tr.eval_psnr(tr.scene.test_cameras, 0)
+        run["trainer"], run["real_step"] = tr, tr._step
+
+        def step(*a):
+            for wrapper in kernels_of.values():
+                wrapper.launches = 0
+            if len(run["losses"]) == iterations - 1:
+                with capture_kernel_inputs(calls):
+                    state, m = run["real_step"](*a)
+            else:
+                state, m = run["real_step"](*a)
+            n = {name: w.launches for name, w in kernels_of.items()}
+            require(all(v > 0 for v in n.values()),
+                    f"4K step {len(run['losses']) + 1}: a kernel did not "
+                    f"launch: {n}")
+            for name in totals:
+                totals[name] += n[name]
+            run["losses"].append(m["loss"])
+            run["entries"].append(m["num_isects"][0])
+            return state, m
+
+        tr._step = step
+        return tr
+
+    trainer_dist.make_trainer = make
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        train.main(["--synthetic_structured", "--synthetic_size", size,
+                    "--synthetic_cams", str(cams), "--llffhold", str(llffhold),
+                    "--synthetic_points", str(points), "--iterations",
+                    str(iterations), "--bsz", "1", "--seed", "4",
+                    "--densify_from_iter", "100", "--densification_interval",
+                    "100", "--densify_until_iter", str(iterations),
+                    "--test_iterations", str(iterations),
+                    "--check_gpu_memory", "--log_memory_summary",
+                    "--log_interval", "50", "--device", str(dev), "-q",
+                    "-m", model_path])
+    finally:
+        trainer_dist.make_trainer = real_make
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    tr = run["trainer"]
+    tr._step, tr.log = run["real_step"], None    # the CLI closed its log
+    # the loop's own peak, before the plain versions below allocate theirs
+    peak, reserved = tr.peak_memory()
+    losses = torch.stack(run["losses"]).cpu()
+    entries = torch.stack(run["entries"]).cpu()
+    require(len(losses) == iterations
+            and int(tr.state.iteration) == iterations,
+            f"the 4K run ran {len(losses)} steps to iteration "
+            f"{int(tr.state.iteration)}")
+    require(bool(torch.isfinite(losses).all()), "non-finite 4K loss")
+    require(all(bool(torch.isfinite(p).all()) for p in tr.state.params),
+            "non-finite parameter after the 4K run")
+    errs = loop_kernel_checks(calls, "a 4K loop step")
+    k2_in, k3_in = calls["K2"][0], calls["K3"]
+    calls.clear()
+    with open(os.path.join(model_path, "python_ws=1_rk=0.log")) as f:
+        log = f.read()
+    ceilings = [int(ln.rsplit("-> ", 1)[1]) for ln in log.splitlines()
+                if "isect entry ceiling -> " in ln]
+    for r in tr.densify_history:
+        print(f"# 4K densify: {r}")
+    print(f"# 4K run, {iterations} iterations at {size}: launches {totals}; "
+          f"loss {float(losses[0]):.5f} -> {float(losses[-1]):.5f}; "
+          f"capacity events {tr.capacity_events}; ceiling readings "
+          f"(entry capacity, step bytes, ceiling) {tr.hbm_readings}")
+    require(ceilings and tr.isect_capacity_ceiling > ISECT_CAP_CEILING,
+            f"4K run: entry ceiling {tr.isect_capacity_ceiling}, logged "
+            f"{ceilings}")
+    require("at the HBM ceiling" not in log, "a 4K step overflowed at the "
+            "entry ceiling")
+    require(any(r["clone"] + r["split"] > 0 for r in tr.densify_history),
+            f"4K run: no densify round cloned or split: "
+            f"{tr.densify_history}")
+    psnr_after = tr.eval_psnr(tr.scene.test_cameras, 0)
+    before = run["psnr_before"]
+    print(f"# 4K held-out PSNR {before['psnr']:.3f} -> "
+          f"{psnr_after['psnr']:.3f} dB, L1 {before['l1']:.5f} -> "
+          f"{psnr_after['l1']:.5f} ({psnr_after['n']} views)")
+    require(psnr_after["psnr"] > before["psnr"], "4K run: held-out PSNR "
+            f"did not rise: {before} -> {psnr_after}")
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    step_bytes = tr.hbm_readings[-1][1]
+    guard = "densification stopped" in log
+    rec = dict(ips=iterations / tr.end2end.total_seconds(), cli_s=cli_s,
+               setup_s=run["setup_s"], peak_entries=int(entries.max()),
+               ceiling=tr.isect_capacity_ceiling, step_bytes=step_bytes,
+               peak=peak, guard=guard)
+    print(f"# 4K memory: entries a camera {int(entries[0])} at step 1, "
+          f"{rec['peak_entries']} at the peak "
+          f"(entry capacity {tr._isect_cap()}) against the ceiling "
+          f"{rec['ceiling']} ({rec['ceiling'] / ISECT_CAP_CEILING:.1f}x "
+          f"2^22); the last measured step took {step_bytes / 2**30:.2f} GiB "
+          f"({step_bytes / total:.1%} of the card's {total / 2**30:.2f} "
+          f"GiB); the run's peak {peak / 2**30:.2f} GiB allocated "
+          f"({peak / total:.1%}; {base / 2**30:.2f} GiB held before the "
+          f"phase), {reserved / 2**30:.2f} GiB reserved; memory guard "
+          f"tripped: {guard}; memory lines "
+          f"{[ln.split('] ')[1] for ln in log.splitlines() if ': memory ' in ln]}"
+          f" {tag}")
+    print(f"# 4K run: {rec['ips']:.2f} iterations/s over "
+          f"{tr.end2end.total_seconds():.2f} s of training; scene set-up "
+          f"(raytrace) {rec['setup_s']:.1f} s, CLI {cli_s:.1f} s {tag}")
+    print("# 4K step profile:")
+    rec["dev_ms"], rows = profile(
+        lambda: tr.train(int(tr.state.iteration) + 1), 3)
+    rec["launches"] = kernel_launches(rows)
+    print(f"# 4K step device time {rec['dev_ms']:.3f} ms, launches per step "
+          f"{rec['launches']}, {sum(r[1] for r in rows):.0f} in all {tag}")
+    rec["bytes_per_entry"] = entry_bytes(tr, tag)
+    rec["kernels"] = step_kernel_times(timer, tag, k2_in, "the 4K step",
+                                       chunk=16)
+    for xs in k3_in:
+        c, m_len = len(xs), xs[0].shape[0]
+        k3_ms = timer.ms(lambda: kernels_of["K3"](xs), 20)
+        print(f"# K3 on the 4K step, C={c} M={m_len}: {k3_ms:.4f} ms, bound "
+              f"{1e3 * 2 * c * m_len * 4 / HBM_BYTES_PER_S:.4f} ms (bytes) "
+              f"{tag}")
+    del k2_in, k3_in
+    rec["dist"] = fourk_dist(dev, tag, kernels_of, tr.scene, tr.cfg,
+                             dist_iters, os.path.join(model_path, "dist"))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"# 4K phase: {rec['phase_s']:.1f} s in all, raytrace and set-up "
+          f"{rec['setup_s']:.1f} s {tag}")
+    return rec, errs
+
+
+def entry_bytes(tr, tag):
+    """The bytes one 4K step takes per entry of capacity: its peak at the
+    run's own entry capacity and twice it, and at FOURK_ENTRY_PROBE (2^27)
+    entries and twice that, where the tile lists set the peak; returns the
+    slopes of both pairs (the second is the device bytes per entry that
+    ``BYTES_PER_ISECT_ENTRY`` holds)."""
+    ids = torch.zeros(1, dtype=torch.long, device=tr.device)
+    cams = type(tr._cam_bank)(*(x[ids] for x in tr._cam_bank))
+    own = tr._isect_cap()
+    big = max(FOURK_ENTRY_PROBE, 4 * own)
+    peaks = {}
+    saved = tr._isect_cap_current
+    try:
+        for cap in (own, 2 * own, big, 2 * big):
+            tr._isect_cap_current = cap
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = tr._step(cams, tr._gt_bank[ids], tr.bg, 0)
+            torch.cuda.synchronize()
+            peaks[cap] = torch.cuda.max_memory_allocated()
+            del out
+    finally:
+        tr._isect_cap_current = saved
+    low = (peaks[2 * own] - peaks[own]) / own
+    high = (peaks[2 * big] - peaks[big]) / big
+    print(f"# bytes a 4K step takes per entry of capacity: step peak "
+          f"{ {c: round(p / 2**30, 3) for c, p in peaks.items()} } GiB at "
+          f"those capacities; {low:.2f} bytes an entry from {own} to "
+          f"{2 * own}, {high:.2f} from {big} to {2 * big} {tag}")
+    return {"own": low, "tile_lists": high}
+
+
+def fourk_dist(dev, tag, kernels_of, scene, cfg, iterations, model_path):
+    """The 4K scene through ``MultiRankTrainer`` on a one-rank NCCL group
+    for ``iterations``: K1-K3 in every step, its entry ceiling read from
+    the card above 2^22 and no step over capacity at it. Returns its
+    entries a rank and its ceiling."""
+    import dataclasses
+    import io
+
+    import torch.distributed as dist
+
+    from grendel_tpu_torch.engine.trainer import ISECT_CAP_CEILING
+    from grendel_tpu_torch.engine.trainer_dist import MultiRankTrainer
+    from grendel_tpu_torch.parallel import comm
+
+    cfg = dataclasses.replace(
+        cfg, test_iterations=[], save_iterations=[], checkpoint_iterations=[],
+        model=dataclasses.replace(cfg.model, model_path=model_path),
+        opt=dataclasses.replace(cfg.opt, iterations=iterations))
+    log = io.StringIO()
+    entries = []
+    totals = {name: 0 for name in kernels_of}
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    comm.init_group(dev, rank=0, world_size=1, store=store)
+    try:
+        mt = MultiRankTrainer(cfg, scene, device=dev, log_file=log)
+        real_step = mt._step
+
+        def step(*a):
+            for wrapper in kernels_of.values():
+                wrapper.launches = 0
+            state, m = real_step(*a)
+            n = {name: w.launches for name, w in kernels_of.items()}
+            require(all(v > 0 for v in n.values()), f"4K distributed step "
+                    f"{len(entries) + 1}: a kernel did not launch: {n}")
+            for name in totals:
+                totals[name] += n[name]
+            entries.append(m["num_isects"].max())
+            return state, m
+
+        mt._step = step
+        t0 = time.perf_counter()
+        mt.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        comm.destroy_group()
+        del store
+    text = log.getvalue()
+    top = int(torch.stack(entries).max())
+    print(f"# 4K distributed loop ({iterations} iterations, world size 1, "
+          f"nccl): entries a rank up to {top} against its ceiling "
+          f"{mt.isect_capacity_ceiling} (readings {mt.hbm_readings}); "
+          f"capacity events {mt.capacity_events}; launches {totals}; "
+          f"{secs:.1f} s {tag}")
+    require(len(entries) == iterations, f"the 4K distributed loop ran "
+            f"{len(entries)} steps")
+    require(mt.isect_capacity_ceiling > ISECT_CAP_CEILING
+            and "isect entry ceiling -> " in text,
+            f"4K distributed loop: entry ceiling {mt.isect_capacity_ceiling}")
+    require("at the HBM ceiling" not in text, "a 4K distributed step "
+            "overflowed at the entry ceiling")
+    return {"entries": top, "ceiling": mt.isect_capacity_ceiling}
+
+
+def step_kernel_times(timer, tag, k2_in, what, chunk=64):
+    """K1 and K2 timed on the inputs one training step (``what``) gave
+    K2, beside the least time the card could take for them (``walked_pairs``
+    in steps of ``chunk`` entries). Returns each one's times and bound."""
+    from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_fwd,
+                                                      rasterize_slots_vjp)
+
+    (m2d, con, col, op, ids, lo, hi, px0, py0, tw, th, mpt, c_total, final_t,
+     g, g_t) = k2_in
+    blend_in = (m2d, con, col, op, ids, None, px0, py0, tw, th, mpt)
+    fwd_kw = dict(tile_lo=lo, tile_hi=hi)
+    bwd_kw = dict(fwd_kw, c_total=c_total, final_t=final_t, g=g, g_t=g_t)
+    pairs, blended = walked_pairs(m2d, con, op, ids, lo, hi, px0, py0, tw,
+                                  th, mpt, chunk)
+    out = {}
+    for name, fn, n_bytes, ops in (
+            ("K1", lambda: rasterize_slots_fwd(*blend_in, **fwd_kw),
+             m2d.shape[0] * 9 * 4 + ids.numel() * 4 + 4 * lo.numel() * 4
+             + final_t.numel() * 4 * 4, K1_OPS_PER_PAIR * pairs),
+            ("K2", lambda: rasterize_slots_vjp(*blend_in, **bwd_kw),
+             m2d.shape[0] * 18 * 4 + ids.numel() * 4 + 4 * lo.numel() * 4
+             + final_t.numel() * 8 * 4,
+             K1_OPS_PER_PAIR * pairs + K2_OPS_PER_BLENDED * blended)):
+        bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / FP32_OPS_PER_S
+        r = {"ms": timer.ms(fn, 20), "device_ms": timer.device_ms(fn, 20),
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        out[name] = r
+        work = (f"{pairs} pairs walked" if name == "K1" else
+                f"{pairs} pairs walked, {blended} blended "
+                f"({blended / max(pairs, 1):.1%}), {ops} operations")
+        print(f"# {name} on {what} ({final_t.shape[0]} slots, {m2d.shape[0]} "
+              f"splats): {work}; {r['ms']:.4f} ms (device alone "
+              f"{r['device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) {tag}")
+    return out
+
+
 def kernel_launches(rows):
     """Launches per call of K1, K2 and K3 in a profile's rows."""
     return {k: sum(n for _, n, key in rows if name in key)
@@ -1806,8 +2138,13 @@ def main(argv=None):
           f"{tag}")
     stamp(t_start, "tools checked")
 
-    # --- 9. kernel timings -------------------------------------------------
+    # --- 13. the 4K configuration through the CLI ------------------------
     timer = Timer()
+    with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
+        _, fourk_errs = fourk_path(dev, tag, kernels_of, timer, tmp)
+    stamp(t_start, "4K configuration checked")
+
+    # --- 9. kernel timings -------------------------------------------------
     k1_ms = timer.ms(lambda: k1(*blend_in, **blend_kw), 20)
     k1_dev_ms = timer.device_ms(lambda: k1(*blend_in, **blend_kw), 20)
     k1_plain_ms = timer.ms(lambda: rasterize_slots(*blend_in, **blend_kw), 3)
@@ -1846,34 +2183,7 @@ def main(argv=None):
           f"({k2_bound_by}) {tag}")
     # K1 and K2 on the inputs of the loop's last step: a trained scene
     # blends far more of its walked pairs than the random garden
-    (m2d, con, col, op, sids, slo, shi, spx0, spy0, stw, sth, smpt, sc, sft,
-     sg, sgt) = step_k2_in
-    step_in = (m2d, con, col, op, sids, None, spx0, spy0, stw, sth, smpt)
-    step_fwd_kw = dict(tile_lo=slo, tile_hi=shi)
-    step_kw = dict(step_fwd_kw, c_total=sc, final_t=sft, g=sg, g_t=sgt)
-    s_pairs, s_blended = walked_pairs(m2d, con, op, sids, slo, shi, spx0,
-                                      spy0, stw, sth, smpt)
-    k1_step_ms = timer.ms(lambda: k1(*step_in, **step_fwd_kw), 20)
-    k1_step_dev_ms = timer.device_ms(lambda: k1(*step_in, **step_fwd_kw), 20)
-    s1_bytes = (m2d.shape[0] * 9 * 4 + sids.numel() * 4 + 4 * slo.numel() * 4
-                + sft.numel() * 4 * 4)
-    s1_bound = max(1e3 * s1_bytes / HBM_BYTES_PER_S,
-                   1e3 * K1_OPS_PER_PAIR * s_pairs / FP32_OPS_PER_S)
-    print(f"# K1 on a loop step ({sft.shape[0]} slots, {m2d.shape[0]} "
-          f"splats): {s_pairs} pairs walked; {k1_step_ms:.4f} ms (device "
-          f"alone {k1_step_dev_ms:.4f} ms), bound {s1_bound:.4f} ms {tag}")
-    k2_step_ms = timer.ms(lambda: k2(*step_in, **step_kw), 20)
-    k2_step_dev_ms = timer.device_ms(lambda: k2(*step_in, **step_kw), 20)
-    s_bytes = (m2d.shape[0] * 18 * 4 + sids.numel() * 4 + 4 * slo.numel() * 4
-               + sft.numel() * 8 * 4)
-    s_ops = K1_OPS_PER_PAIR * s_pairs + K2_OPS_PER_BLENDED * s_blended
-    s_bound = max(1e3 * s_bytes / HBM_BYTES_PER_S,
-                  1e3 * s_ops / FP32_OPS_PER_S)
-    print(f"# K2 on a loop step ({sft.shape[0]} slots, {m2d.shape[0]} "
-          f"splats): {s_pairs} pairs walked, {s_blended} blended "
-          f"({s_blended / max(s_pairs, 1):.1%}), {s_ops} operations; "
-          f"{k2_step_ms:.4f} ms (device alone {k2_step_dev_ms:.4f} ms), "
-          f"bound {s_bound:.4f} ms {tag}")
+    step_kernel_times(timer, tag, step_k2_in, "a loop step")
 
     # K3 per shape; its library time is the one PyTorch call that computes
     # the same function: torch.cumsum of the one channel at C=1, of the
@@ -1913,8 +2223,8 @@ def main(argv=None):
     # the host to reach the launch; device_ms: the device's time alone.
     # launches: K1-K3 over the host training loop's steps, K4 and K5 over
     # the microbenchmark's run; max_abs_err: the larger of the checks on
-    # the garden's inputs, on the last step of each host loop (phases 7 and
-    # 11), on the simulated distributed steps and on the tools' inputs
+    # the garden's inputs, on the last step of each host loop (phases 7, 11
+    # and 13), on the simulated distributed steps and on the tools' inputs
     # (phase 12: a render-tool batch, a profile_step full_step and isect)
     # (K1-K3), and of the microbenchmark's own check and the odd chunk
     # count's (K4, K5)
@@ -1924,7 +2234,8 @@ def main(argv=None):
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:181",
          "launches": loop_launches["K1"],
          "max_abs_err": max(k1_err, loop_errs["K1"], dist_errs["K1"],
-                            dist_loop_errs["K1"], tools_errs["K1"]),
+                            dist_loop_errs["K1"], tools_errs["K1"],
+                            fourk_errs["K1"]),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
         # K3's times are per render_batch (a train_step builds its tile
@@ -1935,7 +2246,8 @@ def main(argv=None):
          "replaces": "grendel_tpu/ops/scan_pallas.py:65",
          "launches": loop_launches["K3"],
          "max_abs_err": max(k3_err, loop_errs["K3"], dist_errs["K3"],
-                            dist_loop_errs["K3"], tools_errs["K3"]),
+                            dist_loop_errs["K3"], tools_errs["K3"],
+                            fourk_errs["K3"]),
          "ms": k3_row["ms"], "device_ms": k3_row["device_ms"],
          "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
@@ -1945,7 +2257,8 @@ def main(argv=None):
          "replaces": "grendel_tpu/ops/rasterize_pallas.py:262",
          "launches": loop_launches["K2"],
          "max_abs_err": max(k2_err, loop_errs["K2"], dist_errs["K2"],
-                            dist_loop_errs["K2"], tools_errs["K2"]),
+                            dist_loop_errs["K2"], tools_errs["K2"],
+                            fourk_errs["K2"]),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
         # library: torch.sum over the int32 view (K4), the PyTorch row

@@ -26,10 +26,23 @@ loss log and the checkpoint's tuner state.
 The tile-list entry capacity (per batch, ``RenderConfig.isect_capacity``
 per camera) starts at isect_capacity_factor x capacity and grows to
 max(1.15 x the largest entry count seen, 1.35 x itself), mantissa-rounded,
-when a step's count passes 0.92 of it. The count is read one step late,
-after the next step is queued, so no step waits on a readback; a count
-over the capacity means that step dropped its farthest entries, and is
-logged.
+when a step's count passes 0.92 of it, never past the entry ceiling. The
+count is read one step late, after the next step is queued, so no step
+waits on a readback; a step of an older capacity only feeds the peak (the
+JAX loop's generation guard). A count over the capacity means that step
+dropped its farthest entries; at the ceiling that is logged.
+
+The entry ceiling starts at 2^22 and, after the first step of each entry
+and Gaussian capacity (where the JAX loop compiles a new step), becomes
+``utils/hbm.py entry_ceiling``: the capacity plus the entries that fit,
+at ``BYTES_PER_ISECT_ENTRY`` each, in 90% of the device's memory above
+the step's peak (``_update_hbm_ceiling``). The peak is the caching
+allocator's ``max_memory_allocated`` over that step, after a reset just
+before it: host-side statistics, so the reading waits for nothing. The
+loop keeps its own running maxima across those resets for its memory
+line (``peak_memory``). On the CPU there is no reading and the ceiling
+stays at 2^22, as the JAX loop's does on the CPU without
+``GRENDEL_HBM_GB``; on the card a missing reading raises.
 
 The ground truth goes up once as a uint8 bank on the device, as do the
 training cameras; each step indexes both. With ``random_background`` the
@@ -39,8 +52,9 @@ background comes from the trainer's own generator seeded with
 Densification stops while the device's live tensors pass
 ``densify_memory_limit_percentage`` of its memory (the JAX loop's memory
 guard, the reference's ``check_memory_usage_and_adjust``); on the CPU
-there is no such share and the guard never trips. It is read only when a
-densify round is due.
+there is no live share, and the guard reads the measured step's share as
+the JAX loop does where the runtime reports none (never, without a
+reading). It is read only when a densify round is due.
 
 With ``local_sampling`` the batches come from ``next_batch_grouped`` with
 one group, and ``save_strategy_history`` writes the (whole-batch)
@@ -57,7 +71,7 @@ the loop raises on a non-finite loss.
 
 Not ported, being TPU workarounds: the recompile generation tags, the
 blend-budget tuner (the render gets no post-cull budget), the trainer
-cache, the HBM ceiling and host-side ground-truth row packing.
+cache and host-side ground-truth row packing.
 """
 
 from __future__ import annotations
@@ -65,7 +79,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,7 +94,8 @@ from ..models.densify import (SPLIT_N, DensifyStats, densify_and_prune,
 from ..models.gaussian_model import (GaussianParams, init_from_pcd,
                                      pad_to_capacity, round_capacity)
 from ..models.optimizer import AdamState, scaled_lrs
-from ..utils.hbm import mantissa_round_cap
+from ..utils import hbm
+from ..utils.hbm import device_bytes_limit, entry_ceiling, mantissa_round_cap
 from ..utils.timer import End2endTimer, Timer, Tracer
 from .checkpoint import (load_checkpoint_sharded, load_tuner_state,
                          save_checkpoint, save_tuner_state)
@@ -89,6 +104,7 @@ from .render import RenderConfig, render_batch
 from .train import TrainState, XyzLrSchedule, train_state_init, train_step
 
 ISECT_CAP_FLOOR = 1 << 14     # the entry capacity never goes below this
+ISECT_CAP_CEILING = 1 << 22   # the entry ceiling until a step is measured
 
 
 def _batched_psnr_l1(imgs: torch.Tensor, gt_u8: torch.Tensor):
@@ -128,6 +144,12 @@ class Trainer:
         self._isect_peak = 0.0
         self._isect_cap_current: Optional[int] = None
         self._densify_growth_ratio = 2.0
+        self.isect_capacity_ceiling = ISECT_CAP_CEILING
+        # (entry capacity, step bytes, ceiling) of each measured step
+        self.hbm_readings: list = []
+        self._hbm_usage_frac: Optional[float] = None
+        self._ceiling_key = None          # the sizes the ceiling was read at
+        self._peaks = (0, 0)              # allocated, reserved before a reset
 
         cam0 = scene.train_cameras[0]
         self.img_h, self.img_w = cam0.height, cam0.width
@@ -250,8 +272,11 @@ class Trainer:
             self.log.flush()
 
     def _round_cap(self, target: float) -> int:
-        return mantissa_round_cap(target, floor=ISECT_CAP_FLOOR,
-                                  align=128 * max(1, self.cfg.dist.bsz))
+        """The mantissa-rounded entry capacity for ``target``, clamped to
+        the entry ceiling (unrounded there, as in the JAX loop)."""
+        cap = mantissa_round_cap(target, floor=ISECT_CAP_FLOOR,
+                                 align=128 * max(1, self.cfg.dist.bsz))
+        return min(cap, self.isect_capacity_ceiling)
 
     def _isect_cap(self) -> int:
         """Tile-list entries per batch: fixed until a grow."""
@@ -272,21 +297,24 @@ class Trainer:
                           else 1024 * p.tile_w * p.tile_h // 256),
             chunk=p.chunk)
 
-    def _check_isect_capacity(self, num_isects: int, cap: int, it: int):
+    def _check_isect_capacity(self, num_isects: int, cap: int):
         """Grow the entry capacity when a step's count passed 0.92 of the
-        capacity it ran with; log an overflow."""
+        capacity it ran with, up to the ceiling; log a step that
+        overflowed at the ceiling. A step of an older capacity only feeds
+        the peak."""
         self._isect_peak = max(self._isect_peak, float(num_isects))
-        if num_isects > cap:
-            self._log(f"iter {it}: isect overflow ({num_isects}/{cap}): the "
-                      f"step dropped its farthest entries")
+        if cap != self._isect_cap():
+            return
         want = self._round_cap(1.15 * self._isect_peak)
-        if (num_isects > 0.92 * cap and want > cap
-                and want > self._isect_cap()):
+        if num_isects > 0.92 * cap and want > cap:
             want = max(want, self._round_cap(1.35 * cap))
             self._isect_cap_current = want
             self.capacity_events.append(("isect_grow", want))
             self._log(f"isect near capacity ({num_isects}/{cap}): growing "
                       f"entry buffer -> {want}")
+        elif num_isects > cap:
+            self._log(f"isect over capacity ({num_isects}/{cap}) at the HBM "
+                      f"ceiling; dropping farthest entries")
 
     def _padded_state(self, new: int) -> TrainState:
         """The state padded to ``new`` slots. New slots are dead; their
@@ -322,6 +350,68 @@ class Trainer:
         g = torch.Generator(device=self.device).manual_seed(seed)
         return torch.randn((self.capacity, SPLIT_N, 3), generator=g,
                            device=self.device)
+
+    def _measured_step(self, cap: int, step):
+        """``step()``; on the first step at each entry capacity ``cap`` and
+        Gaussian capacity, the entry ceiling from the memory it took."""
+        key = (cap, self.capacity)
+        if key == self._ceiling_key:
+            return step()
+        self._ceiling_key = key
+        if self.device.type == "cuda":
+            # the allocator's peaks go into the loop's running maxima, and
+            # the step's own peak starts from what is live now
+            self._peaks = self.peak_memory()
+            torch.cuda.reset_peak_memory_stats(self.device)
+        out = step()
+        self._update_hbm_ceiling(cap, self._step_bytes())
+        return out
+
+    def peak_memory(self) -> Tuple[int, int]:
+        """The most device memory allocated and reserved since the loop
+        started (or since a reset of the caller's before it), across the
+        resets of ``_measured_step``; (0, 0) on the CPU."""
+        if self.device.type != "cuda":
+            return 0, 0
+        return (max(self._peaks[0],
+                    torch.cuda.max_memory_allocated(self.device)),
+                max(self._peaks[1],
+                    torch.cuda.max_memory_reserved(self.device)))
+
+    def _step_bytes(self) -> Optional[int]:
+        """The peak device memory of the step just taken: the counterpart
+        of XLA's temp + argument + output bytes of the JAX loop's compiled
+        step. None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.max_memory_allocated(self.device)
+
+    def _update_hbm_ceiling(self, cap: int, step_bytes: Optional[int]):
+        """The entry ceiling from a step at entry capacity ``cap`` that
+        took ``step_bytes`` (the JAX loop's method of the same name, and
+        its log line): ``entry_ceiling`` over ``device_bytes_limit``. On
+        the card a missing reading raises."""
+        limit = device_bytes_limit(self.device)
+        mine = None
+        if step_bytes and limit:
+            mine = entry_ceiling(cap, step_bytes, limit,
+                                 hbm.BYTES_PER_ISECT_ENTRY)
+        elif self.device.type == "cuda":
+            raise RuntimeError(f"no memory reading on {self.device}: step "
+                               f"bytes {step_bytes}, limit {limit}")
+        ceiling = self._agreed_ceiling(mine)
+        if mine is None:
+            return
+        self._hbm_usage_frac = step_bytes / limit
+        self.isect_capacity_ceiling = ceiling
+        self.hbm_readings.append((cap, step_bytes, ceiling))
+        self._log(f"compiled step reserves {step_bytes / 2**30:.2f}GB of "
+                  f"{limit / 2**30:.0f}GB HBM; isect entry ceiling -> "
+                  f"{ceiling}")
+
+    def _agreed_ceiling(self, mine: Optional[int]) -> Optional[int]:
+        """The ceiling every rank takes; on one device its own."""
+        return mine
 
     def _step(self, cams, gt_u8, bg, sh_degree: int):
         """One training step of the loop's state."""
@@ -493,8 +583,8 @@ class Trainer:
 
         self.timer.start("50 step")
         cap = self._isect_cap()
-        self.state, metrics = self._step(cams, self._gt_bank[ids], bg,
-                                         sh_degree)
+        self.state, metrics = self._measured_step(
+            cap, lambda: self._step(cams, self._gt_bank[ids], bg, sh_degree))
         self.timer.stop("50 step")
         # the whole batch is the one device's row span
         self._record_division(it, batch, [0, bsz * self._tiles_y])
@@ -502,7 +592,7 @@ class Trainer:
         # queued behind it
         if self._pending_isects is not None:
             self._check_isect_capacity(int(self._pending_isects[0][0]),
-                                       self._pending_isects[1], it)
+                                       self._pending_isects[1])
         self._pending_isects = (metrics["num_isects"], cap)
         return metrics
 
@@ -570,8 +660,9 @@ class Trainer:
         """What follows a densify round; nothing on one device."""
 
     def _memory_fraction(self) -> Optional[float]:
-        """Share of the device's memory that live tensors take, or None
-        where there is no such share (the CPU).
+        """Share of the device's memory that live tensors take; where there
+        is no such share (the CPU), the measured step's share of the
+        device's memory, or None without a reading.
 
         The JAX package's guard divides live ``bytes_in_use`` by
         ``bytes_limit``; here the bytes the caching allocator has handed
@@ -580,7 +671,7 @@ class Trainer:
         allocator keeps cached, the CUDA context and other processes do
         not count."""
         if self.device.type != "cuda":
-            return None
+            return self._hbm_usage_frac
         total = torch.cuda.get_device_properties(self.device).total_memory
         return torch.cuda.memory_allocated(self.device) / total
 
@@ -602,24 +693,24 @@ class Trainer:
         ``peak`` (--check_gpu_memory), ``cpu_maxrss`` (--check_cpu_memory)
         and ``compiled_reserved`` (--log_memory_summary). The port compiles
         no step, so ``compiled_reserved`` is the most the caching
-        allocator has reserved on the card (``max_memory_reserved``). The
-        device fields are left out on the CPU."""
+        allocator has reserved on the card; both peaks are the loop's
+        (``peak_memory``). The device fields are left out on the CPU."""
         cfg, gib = self.cfg, 2 ** 30
         on_card = self.device.type == "cuda"
+        peak, reserved = self.peak_memory()
         parts = []
         if cfg.check_gpu_memory and on_card:
             parts.append(
                 f"hbm_in_use="
                 f"{torch.cuda.memory_allocated(self.device) / gib:.2f}GB "
-                f"peak={torch.cuda.max_memory_allocated(self.device) / gib:.2f}GB")
+                f"peak={peak / gib:.2f}GB")
         if cfg.check_cpu_memory:
             import resource
 
             rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
             parts.append(f"cpu_maxrss={rss_kb / 2**20:.2f}GB")
         if cfg.log_memory_summary and on_card:
-            parts.append(f"compiled_reserved="
-                         f"{torch.cuda.max_memory_reserved(self.device) / gib:.2f}GB")
+            parts.append(f"compiled_reserved={reserved / gib:.2f}GB")
         if parts:
             self._log(f"iter {it}: memory " + " ".join(parts))
 

@@ -25,19 +25,21 @@ the JAX package) every rank holds the whole model.
 Every host decision that leads to a collective reads values that are the
 same on every rank: the batch (one seed), the division, the all-gathered
 telemetry, the densify and redistribution info tables, the memory guard's
-share after its maximum over ranks, and the schedule; so is the random
-background (one generator seeded with ``cfg.seed``).
+share after its maximum over ranks, the entry ceiling after its minimum
+over ranks, and the schedule; so is the random background (one generator
+seeded with ``cfg.seed``).
 
 The capacity tuner keeps the JAX loop's thresholds and its generation
 guard for each static size of ``ParallelConfig``: the tile-list entries
 of a rank (from the ranks' largest ``num_isects``), the post-cull blend
 budget (from ``num_kept``) and the all-to-all bucket ``send_cap`` (through
 the bucket factor: grown on overflow, shrunk after 20 checks and one
-window roll). The JAX loop also lowers its entry ceiling from XLA's memory
-analysis of the compiled step (``_update_hbm_ceiling``); nothing compiles
-a step here, so the ceiling stays at its default. Evals render without
-the post-cull budget, where the JAX loop's keep it (see
-``_trainer_for_eval``).
+window roll). The entry ceiling is the base loop's
+(``Trainer._update_hbm_ceiling``), read on the first step of each entry
+and Gaussian capacity from the rank's own step and taken as the smallest
+over ranks: the JAX loop's D-device ``Trainer`` reads one compiled step
+for all its devices. Evals render without the post-cull budget, where
+the JAX loop's keep it (see ``_trainer_for_eval``).
 """
 
 from __future__ import annotations
@@ -62,7 +64,6 @@ from .checkpoint import load_checkpoint_sharded
 from .train import TrainState, train_state_init
 from .trainer import Trainer
 
-ISECT_CAP_CEILING = 1 << 22    # the JAX loop's default entry ceiling
 # shrink a size only when it is this many times its target
 ISECT_SHRINK_GAP, BLEND_SHRINK_GAP = 2.0, 1.25
 
@@ -157,9 +158,6 @@ class MultiRankTrainer(Trainer):
             len(cams), 3, self._tiles_y, th, self.img_w), device=self.device)
 
     # -- the distributed step and its sizes -----------------------------------
-
-    def _round_cap(self, target: float) -> int:
-        return min(super()._round_cap(target), ISECT_CAP_CEILING)
 
     def _isect_cap_target(self) -> int:
         """1.15x the windowed peak of the ranks' entry counts; before any
@@ -262,8 +260,10 @@ class MultiRankTrainer(Trainer):
         self.timer.stop("10 division+pack")
 
         self.timer.start("50 step")
-        self.state, metrics = self._step(cams, gt_rows, self._background(),
-                                         sh_degree, pos)
+        bg = self._background()
+        self.state, metrics = self._measured_step(
+            pcfg.isect_capacity,
+            lambda: self._step(cams, gt_rows, bg, sh_degree, pos))
         self.timer.stop("50 step")
         self._record_division(it, batch, pos_np)
         # the previous step's telemetry, on the host by now: no step waits
@@ -364,7 +364,7 @@ class MultiRankTrainer(Trainer):
                       f"{want}")
         elif num_isects > pcfg.isect_capacity:
             self._log(f"isect over capacity ({num_isects}/"
-                      f"{pcfg.isect_capacity}) at the ceiling; dropping "
+                      f"{pcfg.isect_capacity}) at the HBM ceiling; dropping "
                       f"farthest entries")
         elif (want < pcfg.isect_capacity / ISECT_SHRINK_GAP
                 and want < self._isect_cap()):
@@ -511,6 +511,16 @@ class MultiRankTrainer(Trainer):
         if self.sharded:
             n, = comm.all_reduce_sum([n])
         return int(n)
+
+    def _agreed_ceiling(self, mine: Optional[int]) -> Optional[int]:
+        """The smallest ceiling over ranks (None where no rank read one):
+        every rank clamps its capacities alike, or a rank that grew alone
+        would hang the others in their next collective."""
+        none = 1 << 53              # exact in all_reduce_min's float64
+        low, = comm.all_reduce_min([torch.tensor(
+            none if mine is None else mine, dtype=torch.int64,
+            device=self.device)])
+        return None if int(low) == none else int(low)
 
     def _memory_guard_tripped(self) -> bool:
         """The guard on the largest share over ranks: a densify round is

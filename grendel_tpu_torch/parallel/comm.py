@@ -8,8 +8,9 @@ this is their counterpart for one process per device:
     (:func:`destroy_group` leaves it);
   * :func:`all_to_all`: the sparse exchange, differentiable (its backward
     is the same exchange of the gradient);
-  * :func:`all_reduce_sum` and :func:`all_reduce_max`: one collective over
-    a list of tensors, packed into one flat buffer;
+  * :func:`all_reduce_sum`, :func:`all_reduce_max` and
+    :func:`all_reduce_min`: one collective over a list of tensors, packed
+    into one flat buffer;
   * :func:`all_gather`: every rank's tensor, stacked (the telemetry).
 
 Every rank must call these in the same order: gloo and NCCL match
@@ -78,7 +79,10 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
 
 
 def _all_reduce(tensors: List[torch.Tensor], op) -> List[torch.Tensor]:
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    # float64 carries int64 values (entry counts) exactly up to 2^53
+    wide = any(t.dtype in (torch.int64, torch.float64) for t in tensors)
+    dtype = torch.float64 if wide else torch.float32
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
     dist.all_reduce(flat, op=op)
     out, at = [], 0
     for t in tensors:
@@ -90,13 +94,19 @@ def _all_reduce(tensors: List[torch.Tensor], op) -> List[torch.Tensor]:
 
 def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     """The sum over ranks of each tensor, through one collective on one
-    flat float32 buffer; each result keeps its tensor's shape and dtype."""
+    flat float32 buffer (float64 when a tensor is int64 or float64); each
+    result keeps its tensor's shape and dtype."""
     return _all_reduce(tensors, dist.ReduceOp.SUM)
 
 
 def all_reduce_max(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     """The largest value over ranks of each tensor, the same way."""
     return _all_reduce(tensors, dist.ReduceOp.MAX)
+
+
+def all_reduce_min(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The smallest value over ranks of each tensor, the same way."""
+    return _all_reduce(tensors, dist.ReduceOp.MIN)
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:

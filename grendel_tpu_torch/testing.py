@@ -23,6 +23,8 @@ package's, its random bits cannot be reproduced.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -589,13 +591,15 @@ class StructuredSyntheticScene:
                 ])
                 cams.append((az, pos))
         cams.sort(key=lambda t: t[0])
-        cameras = []
-        for uid, (az, pos) in enumerate(cams):
-            cam = lookat_camera(pos, target, width, height, fovx=fovx,
-                                uid=uid, name=f"view_{uid:03d}")
-            cam.gt_image_u8 = np.asarray(
-                np.clip(raytrace_image(cam), 0, 1) * 255).astype(np.uint8)
-            cameras.append(cam)
+        cameras = [lookat_camera(pos, target, width, height, fovx=fovx,
+                                 uid=uid, name=f"view_{uid:03d}")
+                   for uid, (az, pos) in enumerate(cams)]
+        # numpy lets go of the interpreter lock in its array passes, so the
+        # views raytrace in parallel
+        with ThreadPoolExecutor(min(len(cameras), os.cpu_count() or 1)) as ex:
+            for cam, img in zip(cameras, ex.map(raytrace_image, cameras)):
+                cam.gt_image_u8 = np.asarray(
+                    np.clip(img, 0, 1) * 255).astype(np.uint8)
         self.test_cameras = [c for i, c in enumerate(cameras)
                              if i % llffhold == 0]
         self.train_cameras = [c for i, c in enumerate(cameras)
@@ -769,12 +773,14 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
     ``colors``, ``extent``) and a JSON ``spec`` string: ``config``, the
     TrainConfig overrides (:func:`apply_config`; the model path is
     ``out_dir``), and optionally ``memory_fraction`` ({rank: share} that
-    replaces the rank's device memory share) and ``gt_steps`` (the steps
-    whose ground-truth rows are kept). The rank writes
-    ``out_dir/rank<rank>.npz``: every step's loss and l1, the JSON
-    records of the run, the held-out eval, the kept ground-truth rows
-    with their step's batch and division; and logs to
-    ``out_dir/log_rk<rank>.txt``."""
+    replaces the rank's device memory share), ``hbm_gb`` (the device
+    memory, set as ``GRENDEL_HBM_GB``), ``step_bytes`` ({rank: [base,
+    per_entry]}: the rank's measured step takes base + per_entry x its
+    entry capacity) and ``gt_steps`` (the steps whose ground-truth rows
+    are kept). The rank writes ``out_dir/rank<rank>.npz``: every step's
+    loss and l1 and entry capacity, the JSON records of the run, the
+    held-out eval, the kept ground-truth rows with their step's batch and
+    division; and logs to ``out_dir/log_rk<rank>.txt``."""
     import json
     import os
 
@@ -790,6 +796,8 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
     try:
         z = np.load(spec_path)
         spec = json.loads(str(z["spec"]))
+        if "hbm_gb" in spec:
+            os.environ["GRENDEL_HBM_GB"] = str(spec["hbm_gb"])
 
         def cams(prefix):
             return {k[len(prefix):]: z[k] for k in z.files
@@ -805,10 +813,15 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
             frac = spec.get("memory_fraction", {}).get(str(rank))
             if frac is not None:
                 tr._memory_fraction = lambda: frac
-            losses, gt = [], []
+            reading = spec.get("step_bytes", {}).get(str(rank))
+            if reading is not None:
+                tr._step_bytes = lambda: int(reading[0] + reading[1]
+                                             * tr._isect_cap())
+            losses, gt, caps = [], [], []
             real_step, real_rows = tr._step, tr._gt_rows
 
             def step(*args):
+                caps.append(tr._trainer(args[3]).cfg.isect_capacity)
                 state, m = real_step(*args)
                 losses.append((float(m["loss"]), float(m["l1"])))
                 return state, m
@@ -828,9 +841,12 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
                 opacity_reset_iters=tr.opacity_reset_iters,
                 redistribute_count=tr.redistribute_count,
                 n_alive=tr._n_alive(), n_local=tr.n_local,
-                iteration=int(tr.state.iteration), eval=ev)
+                iteration=int(tr.state.iteration), eval=ev,
+                isect_capacity_ceiling=tr.isect_capacity_ceiling,
+                hbm_readings=tr.hbm_readings)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
                  losses=np.array(losses), records=json.dumps(records),
+                 step_caps=np.array(caps),
                  gt_ids=np.array([g[0] for g in gt]),
                  gt_pos=np.array([g[1] for g in gt]),
                  gt_rows=np.array([g[2] for g in gt]))

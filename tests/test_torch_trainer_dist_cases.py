@@ -12,6 +12,10 @@ densify round after the 4th step; see tests/test_torch_trainer_dist.py):
   * the memory guard with rank 1's memory share alone above the limit:
     both ranks take the maximum, stop densifying and log it, and neither
     waits for the other;
+  * the entry ceiling with each rank's own reading of its step (2 ranks
+    on tests/test_torch_hbm.py's scene, whose rows pass the capacity):
+    both take the smaller ceiling at every reading, clamp their entry
+    capacity to it, log the overflow there, and finish;
   * the port's CLI under ``python -m torch.distributed.run`` with 2 CPU
     processes: it trains, and each rank writes its log, PLY and checkpoint
     files; then the port's render tool under torchrun, with each rank's
@@ -31,6 +35,8 @@ import torch
 
 from grendel_tpu.engine.trainer import Trainer as JTrainer
 from grendel_tpu_torch.engine.checkpoint import checkpoint_name
+from grendel_tpu_torch.utils.hbm import BYTES_PER_ISECT_ENTRY, entry_ceiling
+from tests.test_torch_hbm import ceiling_scene
 from tests.test_torch_trainer_dist import (D, jax_config, jax_scene,
                                            run_ranks, tap_jax)
 
@@ -106,6 +112,38 @@ def test_memory_guard_stops_every_rank(scene, tmp_path):
         with open(tmp_path / f"log_rk{r}.txt") as f:
             log = f.read()
         assert "densification stopped: HBM at 95% (limit 90%)" in log, log
+
+
+def test_entry_ceiling_is_the_ranks_minimum(tmp_path):
+    # rank r's step takes base_r + BYTES_PER_ISECT_ENTRY x its capacity,
+    # so its own ceiling is fixed: (0.9 limit - base_r) / bytes per entry
+    limit, per = 1 << 30, BYTES_PER_ISECT_ENTRY
+    own = {0: 18_000, 1: 40_000}
+    base = {r: 0.9 * limit - c * per for r, c in own.items()}
+    config = dict(SHORT, dist=dict(bsz=2), pipeline=dict(
+        tile_w=16, tile_h=16, isect_capacity_factor=1.0),
+        opt=dict(SHORT["opt"], densify_from_iter=1000))
+    ranks = run_ranks(ceiling_scene(), dict(
+        config=config, hbm_gb=1,
+        step_bytes={str(r): [b, per] for r, b in base.items()}),
+        str(tmp_path), timeout=120.0)
+    readings = [r["records"]["hbm_readings"] for r in ranks]
+    assert readings[0] and [c for c, _, _ in readings[0]] == [
+        c for c, _, _ in readings[1]]
+    for cap, _, ceiling in readings[0]:
+        assert ceiling == min(entry_ceiling(cap, int(b + per * cap), limit,
+                                            per) for b in base.values())
+    for r, rank in enumerate(ranks):
+        rec = rank["records"]
+        assert [c for _, _, c in rec["hbm_readings"]] == [
+            c for _, _, c in readings[0]]
+        assert rec["isect_capacity_ceiling"] == min(own.values())
+        assert rec["iteration"] == 8
+        caps = rank["step_caps"]
+        assert caps[0] < caps[-1] == min(own.values()) >= caps.max()
+        with open(tmp_path / f"log_rk{r}.txt") as f:
+            log = f.read()
+        assert "at the HBM ceiling; dropping farthest entries" in log, log
 
 
 def test_cli_under_torchrun(tmp_path):

@@ -9,7 +9,8 @@ preload rule, on the CPU:
     ``<model_path>/trace``; ``--log_memory_summary`` and
     ``--check_cpu_memory`` write the memory line at every log interval,
     and its text is the JAX loop's for the same numbers (on the card
-    fields too, with the card's counters stubbed);
+    fields too, with the card's counters stubbed; its peaks are the
+    loop's running maxima across the ceiling's resets);
     ``--time_image_loading`` times the decode of an exported dataset;
   * the CLI's ``--detect_anomaly`` (autograd's anomaly mode) raises on a
     NaN loss (a NaN background), which trains on without it, and leaves
@@ -111,11 +112,17 @@ def test_memory_line_matches_jax(monkeypatch):
     want = _memory_line(JTrainer, types.SimpleNamespace(
         cfg=types.SimpleNamespace(**flags),
         _trainer_cache={0: types.SimpleNamespace(mem_bytes=7 * gib)}))
-    for name, v in (("memory_allocated", 3), ("max_memory_allocated", 5),
-                    ("max_memory_reserved", 7)):
+    # the loop's peaks are its running maxima across the resets of its
+    # ceiling readings: the allocator's own, 4 and 6 GiB since the last
+    # reset, are below the 5 and 7 GiB held from before it
+    for name, v in (("memory_allocated", 3), ("max_memory_allocated", 4),
+                    ("max_memory_reserved", 6)):
         monkeypatch.setattr(torch.cuda, name, lambda dev, v=v: v * gib)
-    got = _memory_line(Trainer, types.SimpleNamespace(
-        cfg=types.SimpleNamespace(**flags), device=torch.device("cuda")))
+    port = types.SimpleNamespace(
+        cfg=types.SimpleNamespace(**flags), device=torch.device("cuda"),
+        _peaks=(5 * gib, 7 * gib))
+    port.peak_memory = types.MethodType(Trainer.peak_memory, port)
+    got = _memory_line(Trainer, port)
     assert got == want and len(got) == 1
     assert want[0].startswith("iter 8: memory hbm_in_use=3.00GB "
                               "peak=5.00GB cpu_maxrss=")
