@@ -123,6 +123,27 @@ Phases, each of which fails the run:
      one-rank NCCL group for 10 iterations: K1-K3 in every step, its own
      ceiling above 2^22, its entries a rank beside it, no step over
      capacity at it;
+  14. host-resident ground truth (the preload rule's other side):
+     phase 7's views written as a COLMAP + PNG dataset and trained
+     through the CLI's ``main(argv)`` with ``-s <dir> --eval``, 300
+     iterations at bsz 2, once preloaded (the default threshold) and once
+     at ``--preload_dataset_to_gpu_threshold 0``, where no ground-truth
+     bank may exist and each step packs its batch on the host and uploads
+     it: step-0 L1 equal within 1e-6 relative, held-out PSNR rising in
+     both and within 0.3 dB; K1-K3 in every step and held against their
+     plain versions on the host run's last step; iterations/s, both runs
+     again in alternation, the ground-truth stage's host ms and its time
+     on the loop's timer, synchronizing calls per step and peak memory of
+     each. Then the dataset through ``MultiRankTrainer`` on a one-rank
+     NCCL group, every camera lazy and the decode cache at 3 views, for
+     100 iterations: decodes happen, the cache stays within its budget,
+     step-0 L1 within 1e-5 relative of the first run's, PSNR rises;
+     ``read_png``'s ms a view, and a row's on Paeth-filtered rows. Last,
+     the one-device loop on an in-memory scene of 16 and of 1,600 views at
+     1296x840 (ground truth from a cheap loader, about 5.2 GB of it) for 10
+     iterations at threshold 0: peaks within 64 MiB of each other; and
+     1,600 views preloaded: a peak higher by at least the bank; each
+     run's entry ceiling printed;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -187,6 +208,12 @@ FOURK_SIZE, FOURK_POINTS, FOURK_CAMS, FOURK_HOLD = "5184x3360", 200_000, 6, 8
 FOURK_ITERS, FOURK_DIST_ITERS = 300, 10
 # entry capacities at which the tile lists set a step's peak memory
 FOURK_ENTRY_PROBE = 1 << 27
+# host-resident ground truth (phase 14): the lazy run's iterations, and
+# the memory runs' view counts (the second about 5.2 GB of uint8 ground
+# truth at their size), iterations and initial points
+STORAGE_LAZY_ITERS = 100
+STORAGE_MEM_VIEWS, STORAGE_MEM_SIZE = (16, 1600), (1296, 840)
+STORAGE_MEM_ITERS, STORAGE_MEM_POINTS = 10, 100_000
 # the DMA microbenchmark: scripts/microbench_dma.py's defaults, and an odd
 # chunk count for the checks
 DMA_N, DMA_CAP, DMA_VPU_ITERS, DMA_ODD_CHUNKS = 262_144, 1_048_576, 24, 1001
@@ -1770,6 +1797,441 @@ def fourk_dist(dev, tag, kernels_of, scene, cfg, iterations, model_path):
     return {"entries": top, "ceiling": mt.isect_capacity_ceiling}
 
 
+def paeth_strip_png(path, img, rows):
+    """Write the first ``rows`` rows of ``img`` (H, W, 3) uint8 as a PNG
+    whose every row carries the Paeth filter (4), the filter that
+    ``read_png`` undoes a pixel at a time, as PIL's writer often picks."""
+    import struct
+    import zlib
+
+    x = img[:rows].astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]                      # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                            # above
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]                   # above left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    filt = ((x - pred) & 0xFF).astype(np.uint8).reshape(rows, -1)
+    raw = np.concatenate([np.full((rows, 1), 4, np.uint8), filt], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", img.shape[1], rows,
+                                           8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes())))
+        f.write(chunk(b"IEND", b""))
+
+
+def storage_cli_run(dev, kernels_of, argv, what, calls=None):
+    """Train through the CLI's ``main(argv)`` as a user does, wrapping
+    ``trainer_dist.make_trainer`` to hook the loop: launch counts zeroed
+    just before each step and read just after (every step must launch
+    every kernel), each step's L1, the host's time in the loop's
+    ground-truth stage (``_batch_gt``), and with ``calls`` the last step's
+    kernel inputs. Returns the run's record with its trainer."""
+    import gc
+
+    from grendel_tpu_torch.engine import trainer_dist
+    from grendel_tpu_torch.scripts import train
+
+    iterations = int(argv[argv.index("--iterations") + 1])
+    n_steps = iterations // BSZ
+    run = {"l1": [], "gt_ms": [], "launches": {k: 0 for k in kernels_of}}
+    real_make = trainer_dist.make_trainer
+
+    def make(*args, **kw):
+        tr = real_make(*args, **kw)
+        run["psnr_before"] = tr.eval_psnr(tr.scene.test_cameras, 0)
+        run["trainer"] = tr
+        real_step, real_gt = tr._step, tr._batch_gt
+
+        def step(*a):
+            for wrapper in kernels_of.values():
+                wrapper.launches = 0
+            if calls is not None and len(run["l1"]) == n_steps - 1:
+                with capture_kernel_inputs(calls):
+                    state, m = real_step(*a)
+            else:
+                state, m = real_step(*a)
+            n = {name: w.launches for name, w in kernels_of.items()}
+            require(all(v > 0 for v in n.values()),
+                    f"{what} step {len(run['l1']) + 1}: a kernel did not "
+                    f"launch: {n}")
+            for name in n:
+                run["launches"][name] += n[name]
+            run["l1"].append(m["l1"].sum())
+            return state, m
+
+        def batch_gt(*a):
+            t0 = time.perf_counter()
+            out = real_gt(*a)
+            run["gt_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        tr._step, tr._batch_gt = step, batch_gt
+        run["real"] = real_step, real_gt
+        return tr
+
+    trainer_dist.make_trainer = make
+    # earlier phases' garbage freed first, or the base counts it and a
+    # collection during the run hides part of the run's peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        train.main(argv)
+    finally:
+        trainer_dist.make_trainer = real_make
+    torch.cuda.synchronize()
+    tr = run["trainer"]
+    tr._step, tr._batch_gt = run.pop("real")
+    tr.log = None                          # the CLI closed its log
+    run["peak_gib"] = (tr.peak_memory()[0] - base) / 2**30
+    run["ips"] = iterations / tr.end2end.total_seconds()
+    require(len(run["l1"]) == n_steps, f"{what} ran {len(run['l1'])} steps")
+    run["l1"] = torch.stack(run["l1"]).cpu()
+    require(bool(torch.isfinite(run["l1"]).all()), f"non-finite {what} L1")
+    pairs = tr.timer._pairs.get("20 ground truth", [])
+    run["gt_timer_ms"] = tr.timer.elapsed_ms("20 ground truth") / max(
+        len(pairs), 1)
+    run["gt_host_ms"] = statistics.median(run["gt_ms"])
+    run["psnr_after"] = tr.eval_psnr(tr.scene.test_cameras, 0)
+    sites = sync_sites(
+        lambda: tr.train(int(tr.state.iteration) + 5 * BSZ))
+    run["syncs"] = sum(sites.values()) / 5
+    print(f"# {what}: {iterations} iterations at {run['ips']:.2f} "
+          f"iterations/s; step-0 L1 {float(run['l1'][0]):.7f}; held-out "
+          f"PSNR {run['psnr_before']['psnr']:.3f} -> "
+          f"{run['psnr_after']['psnr']:.3f} dB; ground truth per step: "
+          f"{run['gt_host_ms']:.3f} ms of host (median), "
+          f"{run['gt_timer_ms']:.3f} ms on the loop's timer (CUDA events "
+          f"around the stage); peak {run['peak_gib']:.3f} GiB above what "
+          f"the process held; {run['syncs']:.1f} synchronizing calls per "
+          f"step, by site {dict(sites)}; bank on the device: "
+          f"{tr._gt_bank is not None}; launches {run['launches']}; "
+          f"capacity events {tr.capacity_events}; densify "
+          f"{tr.densify_history}; ceiling readings {tr.hbm_readings}")
+    return run
+
+
+def storage_path(dev, tag, kernels_of, scene, tmp,
+                 iterations=LOOP_ITERS, lazy_iters=STORAGE_LAZY_ITERS,
+                 mem_views=STORAGE_MEM_VIEWS, mem_size=STORAGE_MEM_SIZE,
+                 mem_iters=STORAGE_MEM_ITERS):
+    """Phase 14: host-resident ground truth. (a) phase 7's views written
+    as a COLMAP + PNG dataset and trained through the CLI, preloaded and
+    at threshold 0 (host path); (b) the dataset through
+    ``MultiRankTrainer`` on a one-rank NCCL group with every camera lazy
+    and the decode cache at 3 views; (c) the one-device loop's peak memory
+    at few and many views, with and without the preload. Returns the
+    record and each kernel's max abs error (K1-K3 held to plain on the
+    host run's last step)."""
+    from grendel_tpu_torch.scripts.export_structured_dataset import \
+        write_dataset
+    from grendel_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "dataset")
+    t0 = time.perf_counter()
+    views = sorted(scene.train_cameras + scene.test_cameras,
+                   key=lambda c: c.uid)
+    write_dataset(data, views, scene.point_cloud)
+    print(f"# storage (phase 14): phase 7's {len(views)} views written as a "
+          f"COLMAP + PNG dataset in {time.perf_counter() - t0:.2f} s")
+
+    # --- (a) the on-disk path through the CLI, both ground-truth paths
+    argv = ["-s", data, "--eval", "--llffhold", str(LOOP_SCENE["llffhold"]),
+            "--iterations", str(iterations), "--bsz", str(BSZ),
+            "--densify_from_iter", "100", "--densification_interval", "100",
+            "--densify_until_iter", str(iterations),
+            "--opacity_reset_interval", "200", "--log_interval", "100000",
+            "--enable_timer", "--device", str(dev), "-q"]
+    calls = {}
+    pre = storage_cli_run(dev, kernels_of, argv + [
+        "-m", os.path.join(tmp, "pre")], "preloaded run (a)")
+    host = storage_cli_run(dev, kernels_of, argv + [
+        "-m", os.path.join(tmp, "host"), "--preload_dataset_to_gpu_threshold",
+        "0"], "host-path run (a)", calls)
+    errs = loop_kernel_checks(calls, "a host-path loop step")
+    calls.clear()
+    l1_rel = abs(float(host["l1"][0]) / float(pre["l1"][0]) - 1.0)
+    d_psnr = host["psnr_after"]["psnr"] - pre["psnr_after"]["psnr"]
+    require(pre["trainer"]._gt_bank is not None, "the preloaded run has no "
+            "bank")
+    require(host["trainer"]._gt_bank is None, "the host-path run built a "
+            "ground-truth bank on the device")
+    require(l1_rel <= 1e-6, f"step-0 L1 of the host path "
+            f"{float(host['l1'][0])} vs the preloaded {float(pre['l1'][0])}")
+    for r, name in ((pre, "preloaded"), (host, "host-path")):
+        require(r["psnr_after"]["psnr"] > r["psnr_before"]["psnr"],
+                f"{name} run: held-out PSNR did not rise")
+    require(abs(d_psnr) <= 0.3, f"held-out PSNR of the host path differs "
+            f"from the preloaded by {d_psnr:.3f} dB")
+    one, other = alternating_walls(pre["trainer"], host["trainer"], 15)
+    ratio = sum(one) / sum(other)
+    print(f"# (a) host path against preloaded: step-0 L1 relative err "
+          f"{l1_rel:.3e}, held-out PSNR {host['psnr_after']['psnr']:.3f} vs "
+          f"{pre['psnr_after']['psnr']:.3f} dB ({d_psnr:+.3f}); "
+          f"{host['ips']:.2f} vs {pre['ips']:.2f} iterations/s; in "
+          f"alternation (preloaded, host, host, preloaded; 15 steps each) "
+          f"{one[0]:.3f}, {other[0]:.3f}, {other[1]:.3f}, {one[1]:.3f} ms "
+          f"per step, iterations/s ratio host / preloaded {ratio:.3f} {tag}")
+
+    # --- (b) every camera lazy, the decode cache at 3 views, one rank
+    view_bytes = views[0].gt().nbytes
+    t0 = time.perf_counter()
+    for _ in range(5):
+        read_png(os.path.join(data, "images", f"{views[0].image_name}.png"))
+    png_ms = (time.perf_counter() - t0) * 1e3 / 5
+    strip = os.path.join(tmp, "paeth.png")
+    paeth_rows = min(104, views[0].height)
+    paeth_strip_png(strip, views[0].gt().transpose(1, 2, 0), paeth_rows)
+    t0 = time.perf_counter()
+    back = read_png(strip)
+    paeth_ms = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(back, views[0].gt().transpose(1, 2, 0)[
+        :paeth_rows]), "the Paeth-filtered PNG read back differs")
+    lazy = lazy_rank_run(dev, kernels_of, data, argv, lazy_iters,
+                         3 * view_bytes, os.path.join(tmp, "lazy"))
+    l1_rel_b = abs(lazy["l1_0"] / float(pre["l1"][0]) - 1.0)
+    print(f"# (b) lazy storage, {lazy_iters} iterations of MultiRankTrainer "
+          f"(world size 1, {lazy['backend']}), every camera lazy, decode "
+          f"cache "
+          f"{3 * view_bytes} bytes (3 views): {lazy['decodes']} decodes, the "
+          f"cache's most {lazy['max_bytes']} bytes; step-0 L1 relative err "
+          f"{l1_rel_b:.3e} against (a); held-out PSNR "
+          f"{lazy['psnr_before']:.3f} -> {lazy['psnr_after']:.3f} dB; ground "
+          f"truth {lazy['gt_host_ms']:.3f} ms of host a step (median; "
+          f"{lazy['gt_miss_ms']:.3f} on a step that decoded); read_png "
+          f"{png_ms:.2f} ms a view (filter 0, {views[0].width}x"
+          f"{views[0].height}); Paeth rows {paeth_ms / paeth_rows:.3f} ms a "
+          f"row ({paeth_ms:.1f} ms for {paeth_rows} rows, "
+          f"{paeth_ms / paeth_rows * views[0].height:.0f} ms a view at that "
+          f"rate) {tag}")
+    require(lazy["decodes"] > 0, "(b): no lazy decode")
+    require(lazy["max_bytes"] <= 3 * view_bytes, f"(b): the decode cache "
+            f"held {lazy['max_bytes']} bytes over its budget")
+    require(l1_rel_b <= 1e-5, f"(b): step-0 L1 {lazy['l1_0']} vs (a)'s "
+            f"{float(pre['l1'][0])}")
+    require(lazy["psnr_after"] > lazy["psnr_before"], "(b): held-out PSNR "
+            "did not rise")
+
+    # --- (c) device memory against the dataset's size
+    mem = memory_runs(dev, kernels_of, mem_views, mem_size, mem_iters,
+                      os.path.join(tmp, "mem"), tag)
+    rec = dict(pre=pre, host=host, lazy=lazy, mem=mem, alternating=(one,
+               other), png_ms=png_ms, paeth_ms_row=paeth_ms / paeth_rows)
+    for r in (pre, host):
+        del r["trainer"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"# storage phase: {rec['phase_s']:.1f} s in all {tag}")
+    return rec, errs
+
+
+def lazy_rank_run(dev, kernels_of, data, argv, iterations, cache_bytes,
+                  model_path):
+    """(b): ``MultiRankTrainer`` on a one-rank NCCL group over ``data`` with
+    every camera lazy (``decode_mask`` refuses all) at threshold 0 and the
+    decode cache made anew under ``GRENDEL_GT_CACHE_BYTES`` =
+    ``cache_bytes``. Returns its decodes, the cache's most bytes after any
+    step, step-0 L1, held-out PSNR before and after and the host's ground
+    truth ms."""
+    import torch.distributed as dist
+
+    from grendel_tpu_torch import cameras as cam_mod
+    from grendel_tpu_torch.data.scene import Scene
+    from grendel_tpu_torch.engine.trainer_dist import MultiRankTrainer
+    from grendel_tpu_torch.parallel import comm
+    from grendel_tpu_torch.scripts import train
+
+    i = argv.index("--iterations")
+    a = train.build_parser().parse_args(
+        argv[:i + 1] + [str(iterations)] + argv[i + 2:]
+        + ["-m", model_path, "--preload_dataset_to_gpu_threshold", "0"])
+    cfg = train.args_to_config(a)
+    scene = Scene(data, eval_split=True, llffhold=a.llffhold, seed=a.seed,
+                  decode_mask=lambda i, ci: False)
+    old_env = os.environ.get("GRENDEL_GT_CACHE_BYTES")
+    old_cache = cam_mod.GT_DECODE_CACHE
+    os.environ["GRENDEL_GT_CACHE_BYTES"] = str(cache_bytes)
+    cam_mod.GT_DECODE_CACHE = lru = cam_mod.DecodedLru()
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    comm.init_group(dev, rank=0, world_size=1, store=store)
+    rec = {"l1": [], "bytes": [], "gt_ms": [], "misses": []}
+    try:
+        mt = MultiRankTrainer(cfg, scene, device=dev)
+        backend = dist.get_backend()
+        require(mt._gt_bank is None, "(b) built a ground-truth bank")
+        real_step, real_rows = mt._step, mt._gt_rows
+
+        def step(*args):
+            for wrapper in kernels_of.values():
+                wrapper.launches = 0
+            state, m = real_step(*args)
+            n = {name: w.launches for name, w in kernels_of.items()}
+            require(all(v > 0 for v in n.values()), f"(b) step "
+                    f"{len(rec['l1']) + 1}: a kernel did not launch: {n}")
+            rec["l1"].append(m["l1"].sum())
+            rec["bytes"].append(lru.bytes)
+            return state, m
+
+        def gt_rows(*args):
+            n0 = cam_mod.LAZY_DECODE_COUNT[0]
+            t0 = time.perf_counter()
+            out = real_rows(*args)
+            rec["gt_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["misses"].append(cam_mod.LAZY_DECODE_COUNT[0] > n0)
+            return out
+
+        mt._step, mt._gt_rows = step, gt_rows
+        before = mt.eval_psnr(scene.test_cameras, 0)["psnr"]
+        n0 = cam_mod.LAZY_DECODE_COUNT[0]
+        mt.train()
+        torch.cuda.synchronize()
+        decodes = cam_mod.LAZY_DECODE_COUNT[0] - n0
+        after = mt.eval_psnr(scene.test_cameras, 0)["psnr"]
+    finally:
+        comm.destroy_group()
+        del store
+        cam_mod.GT_DECODE_CACHE = old_cache
+        if old_env is None:
+            os.environ.pop("GRENDEL_GT_CACHE_BYTES", None)
+        else:
+            os.environ["GRENDEL_GT_CACHE_BYTES"] = old_env
+    require(len(rec["l1"]) == iterations // BSZ,
+            f"(b) ran {len(rec['l1'])} steps")
+    miss_ms = [t for t, m in zip(rec["gt_ms"], rec["misses"]) if m]
+    return dict(decodes=decodes, max_bytes=max(rec["bytes"]),
+                backend=backend,
+                l1_0=float(rec["l1"][0]), psnr_before=before,
+                psnr_after=after, gt_host_ms=statistics.median(rec["gt_ms"]),
+                gt_miss_ms=statistics.median(miss_ms) if miss_ms else 0.0)
+
+
+def memory_scene(n_views, size, points=STORAGE_MEM_POINTS):
+    """An in-memory scene of ``n_views`` cameras on one ring around the
+    structured scene's target, each with a ``gt_loader`` that makes a
+    cheap deterministic image from its uid (no raytrace, no disk)."""
+    import types
+
+    from grendel_tpu_torch.testing import (_structured_point_cloud,
+                                           lookat_camera)
+
+    w, h = size
+    target = np.array([0.0, 0.42, 0.0])
+    ramp = np.arange(w)
+
+    def loader(uid):
+        row = ((ramp + 7 * uid) % 256).astype(np.uint8)
+        return np.ascontiguousarray(np.broadcast_to(row, (3, h, w)))
+
+    cams = []
+    for uid in range(n_views):
+        az = 2 * np.pi * uid / n_views
+        pos = target + np.array([4.0 * np.cos(0.6) * np.cos(az),
+                                 -4.0 * np.sin(0.6),
+                                 4.0 * np.cos(0.6) * np.sin(az)])
+        cam = lookat_camera(pos, target, w, h, uid=uid)
+        cam.gt_loader = (lambda uid=uid: loader(uid))
+        cams.append(cam)
+    centers = np.stack([c.camera_center for c in cams])
+    extent = float(np.linalg.norm(centers - centers.mean(0), axis=-1).max()
+                   * 1.1)
+    return types.SimpleNamespace(
+        train_cameras=cams, test_cameras=[], cameras_extent=extent,
+        point_cloud=_structured_point_cloud(points, 0))
+
+
+def memory_runs(dev, kernels_of, views, size, iterations, model_path, tag):
+    """(c): the one-device ``Trainer`` for ``iterations`` on
+    :func:`memory_scene` at ``views[0]`` and ``views[1]`` views at threshold
+    0, then at ``views[1]`` preloaded: the peak of its training steps
+    above what the process held before the trainer was built (the bank,
+    built with the trainer, stays resident through them; the set-up's
+    transients, the nearest-neighbour scales of the initial points above
+    all, are not a step's and are left out), and the entry ceiling read
+    from its first step. Hard checks: the two host-path peaks within 64
+    MiB, the preloaded peak higher by at least the bank's bytes."""
+    import gc
+
+    from grendel_tpu_torch.engine.trainer import Trainer
+
+    out = {}
+    for n, preload in ((views[0], False), (views[1], False),
+                       (views[1], True)):
+        scene = memory_scene(n, size)
+        cfg = loop_config(os.path.join(model_path, f"{n}_{preload}"),
+                          iterations, ())
+        cfg.dist.preload_dataset_to_gpu = preload
+        cfg.dist.preload_dataset_to_gpu_threshold = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, scene, device=dev)
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        require((tr._gt_bank is not None) == preload,
+                f"(c) {n} views, preload {preload}: bank "
+                f"{tr._gt_bank is not None}")
+        real_step = tr._step
+
+        def step(*a, real_step=real_step):
+            for wrapper in kernels_of.values():
+                wrapper.launches = 0
+            state, m = real_step(*a)
+            cnt = {k: w.launches for k, w in kernels_of.items()}
+            require(all(v > 0 for v in cnt.values()),
+                    f"(c) step: a kernel did not launch: {cnt}")
+            return state, m
+
+        tr._step = step
+        tr.train(iterations)
+        torch.cuda.synchronize()
+        bank = 0 if tr._gt_bank is None else (tr._gt_bank.numel()
+                                              * tr._gt_bank.element_size())
+        key = (n, preload)
+        out[key] = dict(peak=tr.peak_memory()[0] - base, bank=bank,
+                        ceiling=tr.isect_capacity_ceiling,
+                        readings=list(tr.hbm_readings), setup_s=setup_s)
+        print(f"# (c) {n} views at {size[0]}x{size[1]}, "
+              f"{'preloaded' if preload else 'threshold 0'}: peak "
+              f"{out[key]['peak'] / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.2f} GiB held before it, bank {bank} bytes, "
+              f"entry ceiling {out[key]['ceiling']} (readings "
+              f"{out[key]['readings']}), set-up {setup_s:.1f} s {tag}")
+        # the hook's closure holds the trainer too
+        tr._step = real_step
+        del tr, scene, step, real_step
+    few, many, pre = (out[(views[0], False)], out[(views[1], False)],
+                      out[(views[1], True)])
+    d_host = many["peak"] - few["peak"]
+    d_pre = pre["peak"] - many["peak"]
+    print(f"# (c) peaks: {views[1]} views minus {views[0]} at threshold 0 "
+          f"{d_host / 2**20:.2f} MiB; preloaded minus threshold 0 "
+          f"{d_pre / 2**30:.3f} GiB against the bank's "
+          f"{pre['bank'] / 2**30:.3f} GiB; ceiling without the bank minus "
+          f"with it {many['ceiling'] - pre['ceiling']} entries against bank "
+          f"/ 77.2 = {pre['bank'] / 77.2:.0f} {tag}")
+    require(abs(d_host) < 64 * 2**20, f"(c): the host path's peak moved "
+            f"{d_host / 2**20:.1f} MiB from {views[0]} to {views[1]} views")
+    require(d_pre >= pre["bank"], f"(c): the preloaded peak is "
+            f"{d_pre} bytes above the host path's, under the bank's "
+            f"{pre['bank']}")
+    return out
+
+
 def step_kernel_times(timer, tag, k2_in, what, chunk=64):
     """K1 and K2 timed on the inputs one training step (``what``) gave
     K2, beside the least time the card could take for them (``walked_pairs``
@@ -2131,6 +2593,7 @@ def main(argv=None):
     tools_rec = tools_path(dev, tag, kernels_of, loop_rec, loop_dir.name,
                            step_dev_ms)
     tools_errs = tools_rec["errs"]
+    struct_scene = loop_rec["scene"]        # phase 14 writes its views
     del loop_rec["scene"], loop_rec["trainer"]
     loop_dir.cleanup()
     print(f"# tools (phase 12): {time.perf_counter() - t12:.1f} s in all; "
@@ -2143,6 +2606,13 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
         _, fourk_errs = fourk_path(dev, tag, kernels_of, timer, tmp)
     stamp(t_start, "4K configuration checked")
+
+    # --- 14. host-resident ground truth ----------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
+        _, storage_errs = storage_path(dev, tag, kernels_of, struct_scene,
+                                       tmp)
+    del struct_scene
+    stamp(t_start, "host-resident ground truth checked")
 
     # --- 9. kernel timings -------------------------------------------------
     k1_ms = timer.ms(lambda: k1(*blend_in, **blend_kw), 20)
@@ -2223,8 +2693,8 @@ def main(argv=None):
     # the host to reach the launch; device_ms: the device's time alone.
     # launches: K1-K3 over the host training loop's steps, K4 and K5 over
     # the microbenchmark's run; max_abs_err: the larger of the checks on
-    # the garden's inputs, on the last step of each host loop (phases 7, 11
-    # and 13), on the simulated distributed steps and on the tools' inputs
+    # the garden's inputs, on the last step of each host loop (phases 7, 11,
+    # 13 and 14), on the simulated distributed steps and on the tools' inputs
     # (phase 12: a render-tool batch, a profile_step full_step and isect)
     # (K1-K3), and of the microbenchmark's own check and the odd chunk
     # count's (K4, K5)
@@ -2235,7 +2705,7 @@ def main(argv=None):
          "launches": loop_launches["K1"],
          "max_abs_err": max(k1_err, loop_errs["K1"], dist_errs["K1"],
                             dist_loop_errs["K1"], tools_errs["K1"],
-                            fourk_errs["K1"]),
+                            fourk_errs["K1"], storage_errs["K1"]),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
         # K3's times are per render_batch (a train_step builds its tile
@@ -2247,7 +2717,7 @@ def main(argv=None):
          "launches": loop_launches["K3"],
          "max_abs_err": max(k3_err, loop_errs["K3"], dist_errs["K3"],
                             dist_loop_errs["K3"], tools_errs["K3"],
-                            fourk_errs["K3"]),
+                            fourk_errs["K3"], storage_errs["K3"]),
          "ms": k3_row["ms"], "device_ms": k3_row["device_ms"],
          "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": "bytes",
@@ -2258,7 +2728,7 @@ def main(argv=None):
          "launches": loop_launches["K2"],
          "max_abs_err": max(k2_err, loop_errs["K2"], dist_errs["K2"],
                             dist_loop_errs["K2"], tools_errs["K2"],
-                            fourk_errs["K2"]),
+                            fourk_errs["K2"], storage_errs["K2"]),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
         # library: torch.sum over the int32 view (K4), the PyTorch row

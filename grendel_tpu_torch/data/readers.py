@@ -7,8 +7,9 @@ train/test split by llffhold, the point cloud from points3D, white or
 black background compositing for Blender sets, and the scene radius of
 1.1 x the largest camera distance from the mean camera center. Where a
 file gives no colors or no points, the random fill comes from
-``np.random.default_rng(0)``. PIL is imported inside the functions that
-read images, so the module imports without it.
+``np.random.default_rng(0)``. The size of a PNG comes from its header
+(utils/png.py), with no PIL; other formats are opened with PIL, imported
+inside :func:`pil_image`, which names the file when PIL is missing.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 from . import colmap
 from ..utils.math3d import focal_to_fov, fov_to_focal, world_to_view
 from ..utils.ply import read_ply, write_ply
+from ..utils.png import png_header
 
 
 class CameraInfo(NamedTuple):
@@ -63,11 +65,26 @@ def nerfpp_norm(cam_infos: List[CameraInfo]) -> dict:
     return {"translate": -avg.flatten(), "radius": diagonal * 1.1}
 
 
-def _image_size(path: str):
-    from PIL import Image
+def pil_image(path: str):
+    """PIL's ``Image`` module, to read ``path``; raises, naming the file,
+    where PIL is not installed."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: reading this image needs PIL, which is "
+                          f"not installed (8-bit PNGs at their own size are "
+                          f"read without it)") from e
+    return Image
 
-    with Image.open(path) as im:
-        return im.size  # (w, h)
+
+def _image_size(path: str):
+    """(w, h) of an image: a PNG's from its header, another format's
+    through PIL."""
+    hdr = png_header(path)
+    if hdr is not None:
+        return hdr.width, hdr.height
+    with pil_image(path).open(path) as im:
+        return im.size
 
 
 def read_colmap_scene(

@@ -2,27 +2,32 @@
 
 The port's own copy of grendel_tpu/data/scene.py (numpy, on the port's
 cameras.py). ``Scene`` dispatches on the directory (COLMAP, MatrixCity,
-Blender), decodes every ground-truth image once at load into a (3, H, W)
-uint8 host array, and takes the scene radius as the cameras' extent.
+Blender), decodes the ground-truth images at load into (3, H, W) uint8
+host arrays, and takes the scene radius as the cameras' extent. With a
+``decode_mask`` (distributed dataset storage, scripts/train.py
+``make_decode_mask``) a camera the mask refuses is not decoded at load:
+it carries a loader, and ``Camera.gt`` decodes it on demand.
 ``SceneDataset`` draws batches from epoch-wise shuffles with
 ``random.Random(seed)`` in the JAX package's refill order, so both
-packages draw the same camera sequence from the same seed.
+packages draw the same camera sequence from the same seed; with local
+sampling, ``next_batch_grouped`` draws each rank's group.
 
-Left for the multi-GPU slice: the per-host ``decode_mask`` of the JAX
-package's distributed dataset storage and ``next_batch_grouped`` of its
-local sampling. PIL is imported inside :func:`decode_image`.
+An 8-bit PNG at its own size is decoded by utils/png.py with no PIL,
+which the card's machine lacks; other formats, and resizing under
+``--resolution``, go through PIL.
 """
 
 from __future__ import annotations
 
 import os
 import random
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
 from ..cameras import Camera
-from .readers import (CameraInfo, SceneInfo, read_blender_scene,
+from ..utils.png import png_header, read_png
+from .readers import (CameraInfo, SceneInfo, pil_image, read_blender_scene,
                       read_colmap_scene)
 
 
@@ -44,13 +49,28 @@ def resolve_resolution(orig_w: int, orig_h: int,
 
 def decode_image(info: CameraInfo, size: Optional[tuple] = None) -> np.ndarray:
     """CameraInfo -> (3, H, W) uint8, alpha composited over ``info.bg``;
-    ``size`` = (w, h) resizes at decode."""
-    from PIL import Image
+    ``size`` = (w, h) resizes at decode.
 
-    with Image.open(info.image_path) as im:
-        if size is not None and size != (im.width, im.height):
-            im = im.resize(size, Image.BILINEAR)
-        arr = np.asarray(im.convert("RGBA") if im.mode == "RGBA" else im)
+    By file format: an 8-bit PNG that needs no resize is read by
+    ``read_png``, without PIL (grey with alpha as RGBA of its grey);
+    anything else goes through PIL, which raises naming the file where it
+    is not installed."""
+    path = info.image_path
+    hdr = png_header(path)
+    if (hdr is not None and hdr.readable
+            and size in (None, (hdr.width, hdr.height))):
+        arr = read_png(path)
+        if arr.shape[-1] == 2:
+            arr = arr[..., [0, 0, 0, 1]]
+        elif arr.shape[-1] == 1:
+            arr = arr[..., 0]
+    else:
+        Image = pil_image(path)
+        with Image.open(path) as im:
+            if size is not None and size != (im.width, im.height):
+                im = im.resize(size, Image.BILINEAR)
+            arr = np.asarray(im.convert("RGBA") if im.mode == "RGBA"
+                             else im)
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     if arr.shape[-1] == 4:
@@ -62,14 +82,19 @@ def decode_image(info: CameraInfo, size: Optional[tuple] = None) -> np.ndarray:
     return np.ascontiguousarray(arr[..., :3].transpose(2, 0, 1))
 
 
-def camera_from_info(uid: int, info: CameraInfo,
+def camera_from_info(uid: int, info: CameraInfo, decode: bool = True,
                      size: Optional[tuple] = None) -> Camera:
+    """The camera of ``info``, its ground truth decoded now, or with
+    ``decode`` False decoded on demand by ``Camera.gt``."""
     w, h = size if size is not None else (info.width, info.height)
     return Camera(
         uid=uid, image_name=info.image_name, R=info.R, T=info.T,
         fovx=info.fovx,   # FoV does not change under a uniform rescale
         fovy=info.fovy, width=w, height=h,
-        gt_image_u8=decode_image(info, size=size))
+        gt_image_u8=decode_image(info, size=size) if decode else None,
+        gt_loader=(None if decode
+                   else lambda info=info, size=size: decode_image(info,
+                                                                  size)))
 
 
 class Scene:
@@ -86,6 +111,7 @@ class Scene:
         num_test: int = -1,
         shuffle: bool = True,
         seed: int = 0,
+        decode_mask: Optional[Callable[[int, CameraInfo], bool]] = None,
         resolution: float = -1.0,
         decode_workers: int = 8,
     ):
@@ -118,15 +144,17 @@ class Scene:
             random.Random(seed).shuffle(train_infos)
 
         def build(infos: Sequence[CameraInfo]) -> List[Camera]:
-            # PIL releases the interpreter lock while it decompresses, so
-            # threads decode in parallel
+            # zlib and PIL release the interpreter lock while they
+            # decompress, so threads decode in parallel
             from concurrent.futures import ThreadPoolExecutor
 
+            decode = [decode_mask is None or bool(decode_mask(i, ci))
+                      for i, ci in enumerate(infos)]
             with ThreadPoolExecutor(max_workers=max(1, decode_workers)) as ex:
                 return list(ex.map(
-                    lambda t: camera_from_info(t[0], t[1],
+                    lambda t: camera_from_info(t[0], t[1], decode=t[2],
                                                size=self.resolution_wh),
-                    enumerate(infos)))
+                    zip(range(len(infos)), infos, decode)))
 
         self.train_cameras: List[Camera] = build(train_infos)
         self.test_cameras: List[Camera] = build(info.test_cameras)

@@ -44,8 +44,13 @@ line (``peak_memory``). On the CPU there is no reading and the ceiling
 stays at 2^22, as the JAX loop's does on the CPU without
 ``GRENDEL_HBM_GB``; on the card a missing reading raises.
 
-The ground truth goes up once as a uint8 bank on the device, as do the
-training cameras; each step indexes both. With ``random_background`` the
+The training cameras go up once to the device; each step indexes them.
+The ground truth goes up once too, as a uint8 bank that each step
+indexes, only where the dataset is preloaded (``_apply_preload_rule``);
+otherwise it stays on the host, decoded at load or on demand
+(``Camera.gt``), and each step packs its batch's images into a pinned
+staging buffer and copies them behind the queued work (``PinnedUpload``),
+the JAX loop's host path. With ``random_background`` the
 background comes from the trainer's own generator seeded with
 ``cfg.seed``; the JAX package draws it from a JAX key, so the two differ.
 
@@ -70,8 +75,8 @@ largest reservation to the memory line. Under autograd's anomaly mode
 the loop raises on a non-finite loss.
 
 Not ported, being TPU workarounds: the recompile generation tags, the
-blend-budget tuner (the render gets no post-cull budget), the trainer
-cache and host-side ground-truth row packing.
+blend-budget tuner (the render gets no post-cull budget) and the trainer
+cache.
 """
 
 from __future__ import annotations
@@ -105,6 +110,56 @@ from .train import TrainState, XyzLrSchedule, train_state_init, train_step
 
 ISECT_CAP_FLOOR = 1 << 14     # the entry capacity never goes below this
 ISECT_CAP_CEILING = 1 << 22   # the entry ceiling until a step is measured
+
+
+class PinnedUpload:
+    """Uploads of uint8 ground truth from the host through two pinned
+    staging buffers. A buffer is refilled only after the event recorded
+    behind its last copy has passed, so no copy in flight is overwritten;
+    the copy runs behind the queued work, and the host makes no
+    synchronizing call (the event it waits on belongs to the step before
+    the last, which the loop's readback has already waited for). On the
+    CPU the filled array is the tensor."""
+
+    def __init__(self, device):
+        self.device = device
+        self._slots: list = []      # [pinned buffer, event of its copy]
+        self._next = 0
+
+    def __call__(self, shape, fill) -> torch.Tensor:
+        """``fill(buf)`` writes all of the uint8 numpy array ``buf`` of
+        ``shape``; returns its contents on the device."""
+        if self.device.type != "cuda":
+            buf = np.empty(shape, np.uint8)
+            fill(buf)
+            return torch.from_numpy(buf)
+        if not self._slots or tuple(self._slots[0][0].shape) != tuple(shape):
+            self._slots = [[torch.empty(shape, dtype=torch.uint8,
+                                        pin_memory=True), None]
+                           for _ in range(2)]
+        slot = self._slots[self._next]
+        self._next ^= 1
+        if slot[1] is not None:
+            slot[1].synchronize()
+        fill(slot[0].numpy())
+        out = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return out
+
+
+def device_gt_bank(cams, rows: int, device) -> torch.Tensor:
+    """(C, 3, rows, W) uint8 ground truth of ``cams`` on ``device``, zero
+    below each image, copied one camera at a time from
+    ``Camera.gt(cache=False)``: a camera stored lazily is decoded too, so
+    no camera's ground truth is left at zero (the JAX loop's bank copies
+    only the cameras decoded at load)."""
+    c0 = cams[0]
+    bank = torch.zeros((len(cams), 3, rows, c0.width), dtype=torch.uint8,
+                       device=device)
+    for i, c in enumerate(cams):
+        bank[i, :, :c0.height] = torch.from_numpy(c.gt(cache=False))
+    return bank
 
 
 def _batched_psnr_l1(imgs: torch.Tensor, gt_u8: torch.Tensor):
@@ -187,27 +242,29 @@ class Trainer:
         if cfg.start_checkpoint:
             self._restore_tuner_state(cfg.start_checkpoint)
 
-        # the training cameras and their ground truth, once, on the device
+        # the training cameras, once, on the device; their ground truth too
+        # where the dataset is preloaded, else it is uploaded each step
         cams = scene.train_cameras
         self._cam_bank = batch_camera_arrays(cams, dev)
         self._cam_index = {c.uid: i for i, c in enumerate(cams)}
-        self._gt_bank = self._make_gt_bank(cams)
-        self._apply_preload_rule()
+        self._upload_gt = PinnedUpload(dev)
+        self._gt_bank = (self._make_gt_bank(cams)
+                         if self._apply_preload_rule() else None)
 
-    def _apply_preload_rule(self):
+    def _apply_preload_rule(self) -> bool:
         """The JAX loop's dataset preload: with ``preload_dataset_to_gpu``,
         or a dataset (training and held-out views, 3 bytes a pixel) below
         ``preload_dataset_to_gpu_threshold`` GB, ``local_sampling`` and
         ``distributed_dataset_storage`` are switched off and the division
-        recomputed (the reference's train_internal.py:133-155). The ground
-        truth is on the device in any case, so only the semantics
-        change."""
+        recomputed (the reference's train_internal.py:133-155). Returns
+        whether the dataset is preloaded: its ground truth then goes to
+        the device once, else it stays on the host."""
         d, scene = self.cfg.dist, self.scene
         n_cams = len(scene.train_cameras) + len(scene.test_cameras)
         ds_gb = n_cams * self.img_h * self.img_w * 3 / 1e9
         thresh = d.preload_dataset_to_gpu_threshold
         if not (d.preload_dataset_to_gpu or (thresh > 0 and ds_gb < thresh)):
-            return
+            return False
         if d.local_sampling:
             self._log("preload_dataset_to_gpu: disabling local_sampling "
                       "(ref train_internal.py:150-152)")
@@ -217,6 +274,7 @@ class Trainer:
         d.distributed_dataset_storage = False
         self._log(f"preloaded {len(scene.train_cameras)} GT images "
                   f"({ds_gb:.2f} GB dataset) to device memory")
+        return True
 
     def _point_cloud(self) -> PointCloud:
         """The scene's initial points, less a random share with
@@ -257,9 +315,23 @@ class Trainer:
         return -(-self.img_h // self.cfg.pipeline.tile_h)
 
     def _make_gt_bank(self, cams) -> torch.Tensor:
-        """(C, 3, H, W) uint8 ground truth of the training cameras."""
-        return torch.as_tensor(np.stack([c.gt_image_u8 for c in cams]),
-                               device=self.device)
+        """(C, 3, H, W) uint8 ground truth of the training cameras on the
+        device (:func:`device_gt_bank`)."""
+        return device_gt_bank(cams, self.img_h, self.device)
+
+    def _batch_gt(self, batch: List[Camera], ids) -> torch.Tensor:
+        """(B, 3, H, W) uint8 ground truth of the batch on the device:
+        gathered from the bank (indices ``ids``), or packed on the host
+        and uploaded."""
+        if self._gt_bank is not None:
+            return self._gt_bank[ids]
+
+        def fill(buf):
+            for b, c in enumerate(batch):
+                buf[b] = c.gt()
+
+        return self._upload_gt((len(batch), 3, self.img_h, self.img_w),
+                               fill)
 
     # ------------------------------------------------------------------
 
@@ -442,8 +514,11 @@ class Trainer:
         for i in range(0, len(cams), bsz):
             batch = cams[i:i + bsz]
             imgs = self._render_eval(batch, sh_degree)
-            gt = torch.as_tensor(np.stack([c.gt_image_u8 for c in batch]),
-                                 device=self.device)
+            # read through: an eval sweep must not evict the training
+            # working set from the decode cache
+            gt = torch.as_tensor(
+                np.stack([c.gt(cache=False) for c in batch]),
+                device=self.device)
             p, l1 = _batched_psnr_l1(imgs, gt)
             psnrs.append(p)
             l1s.append(l1)
@@ -580,11 +655,14 @@ class Trainer:
         cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
         bg = self._background()
         self.timer.stop("10 batch")
+        self.timer.start("20 ground truth")
+        gt = self._batch_gt(batch, ids)
+        self.timer.stop("20 ground truth")
 
         self.timer.start("50 step")
         cap = self._isect_cap()
         self.state, metrics = self._measured_step(
-            cap, lambda: self._step(cams, self._gt_bank[ids], bg, sh_degree))
+            cap, lambda: self._step(cams, gt, bg, sh_degree))
         self.timer.stop("50 step")
         # the whole batch is the one device's row span
         self._record_division(it, batch, [0, bsz * self._tiles_y])

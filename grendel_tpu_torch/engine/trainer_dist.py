@@ -11,9 +11,11 @@ iterations:
   ``local_sampling`` group g of the cameras, ``uid % D == g``, fills rank
   g's share) -> the row division (``divide_rows`` over the per-camera
   heuristic history, or whole images when ``image_distribution`` is off or
-  ``local_sampling`` on) -> this rank's ground-truth rows gathered on its
-  device -> one distributed step -> the previous step's telemetry folded
-  into the division history (after the warm-up) and the capacity tuner ->
+  ``local_sampling`` on) -> this rank's ground-truth rows, gathered on its
+  device from a preloaded bank, else packed on the host (only its own
+  span, through ``Camera.gt``) and uploaded -> one distributed step ->
+  the previous step's telemetry folded into the division history (after
+  the warm-up) and the capacity tuner ->
   densify with capacity growth and random redistribution, opacity reset,
   on their schedule -> eval, saves and checkpoints, per rank when
   ``distributed_save`` is on.
@@ -56,13 +58,13 @@ from ..models.gaussian_model import (GaussianParams, init_from_pcd,
                                      round_capacity)
 from ..parallel import comm
 from ..parallel.division import (DivisionHistory, divide_rows,
-                                 divide_rows_whole_images)
+                                 divide_rows_whole_images, pack_gt_rows)
 from ..parallel.redistribute import redistribute
 from ..parallel.sharded import (DistributedTrainer, ParallelConfig,
                                 shard_state)
 from .checkpoint import load_checkpoint_sharded
 from .train import TrainState, train_state_init
-from .trainer import Trainer
+from .trainer import Trainer, device_gt_bank
 
 # shrink a size only when it is this many times its target
 ISECT_SHRINK_GAP, BLEND_SHRINK_GAP = 2.0, 1.25
@@ -148,14 +150,11 @@ class MultiRankTrainer(Trainer):
 
     def _make_gt_bank(self, cams) -> torch.Tensor:
         """(C, 3, tiles_y, tile_h, W) uint8: the ground truth of the
-        training cameras in tile rows, zero below the image."""
+        training cameras in tile rows, zero below the image
+        (:func:`device_gt_bank`)."""
         th = self.cfg.pipeline.tile_h
-        bank = np.zeros((len(cams), 3, self._tiles_y * th, self.img_w),
-                        np.uint8)
-        for i, c in enumerate(cams):
-            bank[i, :, :self.img_h] = c.gt_image_u8
-        return torch.as_tensor(bank.reshape(
-            len(cams), 3, self._tiles_y, th, self.img_w), device=self.device)
+        return device_gt_bank(cams, self._tiles_y * th, self.device).view(
+            len(cams), 3, self._tiles_y, th, self.img_w)
 
     # -- the distributed step and its sizes -----------------------------------
 
@@ -230,15 +229,26 @@ class MultiRankTrainer(Trainer):
                            pcfg.n_row_slots, rows_per_image=self._tiles_y,
                            border_coeff=self.cfg.dist.border_divpos_coeff)
 
-    def _gt_rows(self, ids, pos, pcfg: ParallelConfig) -> torch.Tensor:
-        """This rank's (R, 3, tile_h, W) uint8 ground-truth rows of the
-        batch (bank indices ``ids``), gathered on the device; zero past
-        its span (parallel/division.py ``pack_gt_rows``)."""
-        rows = pos[self.rank] + torch.arange(
-            pcfg.n_row_slots, device=self.device, dtype=torch.int32)
+    def _gt_rows(self, batch: List[Camera], ids, pos_np: np.ndarray,
+                 pcfg: ParallelConfig) -> torch.Tensor:
+        """This rank's (R, 3, tile_h, W) uint8 ground-truth rows of
+        ``batch`` (bank indices ``ids``) at the division ``pos_np``, zero
+        past its span: gathered on the device from a preloaded bank, else
+        packed on the host by parallel/division.py ``pack_gt_rows`` over
+        this rank's span alone (a lazily stored camera decodes only where
+        its rows are this rank's) and uploaded. Both give the same
+        bytes."""
+        lo, hi = int(pos_np[self.rank]), int(pos_np[self.rank + 1])
+        shape = (pcfg.n_row_slots, 3, pcfg.tile_h, self.img_w)
+        if self._gt_bank is None:
+            span = np.array([lo, hi], np.int32)
+            return self._upload_gt(shape, lambda buf: pack_gt_rows(
+                batch, span, 1, pcfg.n_row_slots, pcfg.tile_h, self.img_h,
+                self.img_w, out=buf[None]))
+        rows = lo + torch.arange(pcfg.n_row_slots, device=self.device)
         b = torch.clamp(rows // self._tiles_y, 0, pcfg.bsz - 1)
-        out = self._gt_bank[ids[b.long()], :, (rows % self._tiles_y).long()]
-        keep = (rows < pos[self.rank + 1])[:, None, None, None]
+        out = self._gt_bank[ids[b], :, rows % self._tiles_y]
+        keep = (rows < hi)[:, None, None, None]
         return torch.where(keep, out, torch.zeros_like(out))
 
     def _step(self, cams, gt_rows, bg, sh_degree: int, division_pos):
@@ -256,7 +266,9 @@ class MultiRankTrainer(Trainer):
         ids = self._upload(np.array([self._cam_index[c.uid] for c in batch]))
         pos = self._upload(pos_np)
         cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
-        gt_rows = self._gt_rows(ids, pos, pcfg)
+        self.timer.start("20 ground truth")
+        gt_rows = self._gt_rows(batch, ids, pos_np, pcfg)
+        self.timer.stop("20 ground truth")
         self.timer.stop("10 division+pack")
 
         self.timer.start("50 step")

@@ -156,21 +156,32 @@ def pack_gt_rows(
     img_h: int,
     img_w: int,
     gt_override: Optional[List[np.ndarray]] = None,
+    out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Slice each device's GT tile rows into a (D, max_rows, 3, tile_h, W)
     uint8 buffer (the reference's row-span GT upload,
     loss_distribution.py:2395-2533). Rows beyond [lo, hi) or beyond the
-    image bottom are zero; the device step masks them out."""
+    image bottom are zero; the device step masks them out. Each camera's
+    image comes from ``Camera.gt()``, once, and only for cameras with rows
+    in the spans, so a lazily stored camera decodes only where its rows
+    are packed. ``out``, where given, is the buffer filled (a pinned
+    staging buffer's view), else a new one."""
     tiles_y = -(-img_h // tile_h)
-    out = np.zeros((n_devices, max_rows, 3, tile_h, img_w), np.uint8)
+    if out is None:
+        out = np.zeros((n_devices, max_rows, 3, tile_h, img_w), np.uint8)
+    else:
+        out.fill(0)
+    images: Dict[int, Optional[np.ndarray]] = {}
     for d in range(n_devices):
         lo, hi = int(division_pos[d]), int(division_pos[d + 1])
         for slot, row in enumerate(range(lo, hi)):
             if slot >= max_rows:
                 break
             b, ty = divmod(row, tiles_y)
-            img = (gt_override[b] if gt_override is not None
-                   else cams[b].gt_image_u8)
+            if b not in images:
+                images[b] = (gt_override[b] if gt_override is not None
+                             else cams[b].gt())
+            img = images[b]
             if img is None:
                 continue
             y0 = ty * tile_h

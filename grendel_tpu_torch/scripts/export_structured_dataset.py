@@ -24,18 +24,25 @@ import numpy as np
 def export_structured_dataset(out: str, width: int, height: int,
                               n_cams: int, n_points: int, seed: int,
                               llffhold: int = 8) -> None:
-    from ..data.colmap import (ColmapCamera, ColmapImage, rotmat_to_qvec,
-                               write_cameras_binary, write_images_binary,
-                               write_points3d_binary)
     from ..testing import StructuredSyntheticScene
-    from ..utils.png import write_png
 
     scene = StructuredSyntheticScene(
         width=width, height=height, n_cams=n_cams,
         n_init_points=n_points, seed=seed, llffhold=llffhold)
-    cams = sorted(scene.train_cameras + scene.test_cameras,
-                  key=lambda c: c.uid)
+    write_dataset(out, scene.train_cameras + scene.test_cameras,
+                  scene.point_cloud)
 
+
+def write_dataset(out: str, cameras, point_cloud) -> None:
+    """Write ``cameras`` (one PINHOLE intrinsic, that of the first; each
+    with its ground truth) and ``point_cloud`` as a COLMAP dataset under
+    ``out``."""
+    from ..data.colmap import (ColmapCamera, ColmapImage, rotmat_to_qvec,
+                               write_cameras_binary, write_images_binary,
+                               write_points3d_binary)
+    from ..utils.png import write_png
+
+    cams = sorted(cameras, key=lambda c: c.uid)
     img_dir = os.path.join(out, "images")
     sparse = os.path.join(out, "sparse", "0")
     os.makedirs(img_dir, exist_ok=True)
@@ -44,7 +51,7 @@ def export_structured_dataset(out: str, width: int, height: int,
     images = {}
     for c in cams:
         name = f"{c.image_name}.png"
-        write_png(os.path.join(img_dir, name), c.gt_image_u8.transpose(1, 2, 0))
+        write_png(os.path.join(img_dir, name), c.gt().transpose(1, 2, 0))
         # COLMAP stores world-to-camera: the qvec of R_w2c (Camera.R^T;
         # the reader transposes it back) and tvec = Camera.T
         images[c.uid + 1] = ColmapImage(
@@ -52,6 +59,7 @@ def export_structured_dataset(out: str, width: int, height: int,
             tvec=np.asarray(c.T, np.float64), camera_id=1, name=name)
 
     c0 = cams[0]
+    width, height = c0.width, c0.height
     fx = width / (2.0 * c0.tanfovx)
     fy = height / (2.0 * c0.tanfovy)
     write_cameras_binary(
@@ -59,7 +67,7 @@ def export_structured_dataset(out: str, width: int, height: int,
         {1: ColmapCamera(id=1, model="PINHOLE", width=width, height=height,
                          params=np.array([fx, fy, width / 2.0, height / 2.0]))})
     write_images_binary(os.path.join(sparse, "images.bin"), images)
-    pcd = scene.point_cloud
+    pcd = point_cloud
     write_points3d_binary(
         os.path.join(sparse, "points3D.bin"), pcd.points.astype(np.float64),
         np.clip(pcd.colors * 255.0, 0, 255).astype(np.uint8))

@@ -220,9 +220,10 @@ def main(argv=None) -> int:
                     write_png(os.path.join(rdir, f"{i + b:05d}.png"),
                               (imgs[b].transpose(1, 2, 0) * 255 + 0.5)
                               .astype(np.uint8))
-                    if cam.gt_image_u8 is not None:
+                    gt = cam.gt()     # decodes a lazily stored camera
+                    if gt is not None:
                         write_png(os.path.join(gdir, f"{i + b:05d}.png"),
-                                  cam.gt_image_u8.transpose(1, 2, 0))
+                                  gt.transpose(1, 2, 0))
             if rank == 0:
                 print(f"rendered {len(cams)} {name} views -> {rdir}",
                       flush=True)

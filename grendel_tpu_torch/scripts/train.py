@@ -94,16 +94,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-rank PLY and checkpoint files of a sharded "
                         "model")
     p.add_argument("--distributed_dataset_storage", type=int, default=1,
-                   help="parsed; every rank keeps the training ground "
-                        "truth on its device")
+                   help="under torchrun, each rank decodes only its "
+                        "stride of the dataset at load (uid %% world == "
+                        "rank) and the rest on demand; off where the "
+                        "dataset is preloaded")
     p.add_argument("--sync_grad_mode", type=str, default="dense",
                    choices=["dense", "sparse", "fused_dense", "fused_sparse"],
                    help="parsed; the replicated gradients are one "
                         "all-reduce")
     p.add_argument("--local_sampling", action="store_true")
     p.add_argument("--preload_dataset_to_gpu", action="store_true",
-                   help="switches local_sampling and distributed storage "
-                        "off; the ground truth is on the device in any case")
+                   help="the training ground truth on the device, gathered "
+                        "there each step; switches local_sampling and "
+                        "distributed storage off. Otherwise it stays on the "
+                        "host and each step uploads its batch's (each "
+                        "rank's rows')")
     p.add_argument("--preload_dataset_to_gpu_threshold", type=int, default=10,
                    help="GB; datasets smaller than this are preloaded as if "
                         "by --preload_dataset_to_gpu (<=0: never)")
@@ -233,9 +238,30 @@ def args_to_config(a):
     return cfg.finalize()
 
 
-def make_scene(a, device):
+def make_decode_mask(cfg, world: int, rank: int):
+    """The ground truth this process decodes at load under
+    ``--distributed_dataset_storage`` (the port's counterpart of the JAX
+    script's ``make_decode_mask``): the cameras with ``uid % world ==
+    rank``; every other camera decodes on demand (``Camera.gt``). None,
+    decode everything, when storage is off or the world has one rank.
+
+    The JAX script has two rules. With ``local_sampling`` a process keeps
+    the cameras of its devices' groups, ``uid % D`` in the mesh positions
+    of its devices; otherwise its stride over processes, ``uid % P ==
+    process_index``. The port runs one process per device, so D = P =
+    world and a process's one position is its rank: both rules keep
+    ``uid % world == rank``. (Scene numbers its cameras by position, so a
+    camera's uid is the mask's index.)"""
+    if not cfg.dist.distributed_dataset_storage or world == 1:
+        return None
+    return lambda i, ci: i % world == rank
+
+
+def make_scene(a, device, decode_mask=None):
     """The scene the flags name: a structured or random synthetic scene, or
-    a scene directory (COLMAP, Blender or MatrixCity)."""
+    a scene directory (COLMAP, Blender or MatrixCity), whose ground truth
+    decodes at load where ``decode_mask`` (:func:`make_decode_mask`) says
+    so."""
     from .. import testing
 
     if a.synthetic_structured or a.synthetic:
@@ -261,10 +287,16 @@ def make_scene(a, device):
                   llffhold=a.llffhold, white_background=a.white_background,
                   num_train=a.num_train_cameras, num_test=a.num_test_cameras,
                   seed=a.seed, resolution=a.resolution,
+                  decode_mask=decode_mask,
                   decode_workers=8 if a.multiprocesses_image_loading else 1)
     if a.time_image_loading:
         print(f"[timing] scene + GT decode: {time.time() - t_load:.2f}s",
               flush=True)
+    stored = sum(c.gt_image_u8 is not None for c in scene.train_cameras)
+    if stored < len(scene.train_cameras):
+        print(f"[storage] decoded {stored}/{len(scene.train_cameras)} train "
+              f"GT images (--distributed_dataset_storage; the rest decode "
+              f"on demand)", flush=True)
     return scene
 
 
@@ -307,7 +339,7 @@ def main(argv=None) -> int:
     if launched:
         comm.init_group(device)
     try:
-        scene = make_scene(a, device)
+        scene = make_scene(a, device, make_decode_mask(cfg, world, rank))
         os.makedirs(cfg.log_folder, exist_ok=True)
         with open(os.path.join(cfg.log_folder,
                                f"python_ws={world}_rk={rank}.log"),

@@ -15,10 +15,11 @@ package's, its random bits cannot be reproduced.
     scenes the training loop trains on (``Scene``'s duck type), a random
     Gaussian scene rendered to its ground truth, and the raytraced
     hemisphere-rig scene with a held-out split;
-  * :func:`simulate_distributed`, :func:`gloo_worker` and
-    :func:`trainer_worker`: the distributed step of D ranks in one
-    process, and one rank of a gloo run of the step or of the training
-    loop, for the multi-device tests.
+  * :func:`simulate_distributed`, :func:`gloo_worker`,
+    :func:`trainer_worker` and :func:`storage_worker`: the distributed step
+    of D ranks in one process, and one rank of a gloo run of the step, of
+    the training loop, or of the loop under distributed dataset storage,
+    for the multi-device tests.
 """
 
 from __future__ import annotations
@@ -826,10 +827,10 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
                 losses.append((float(m["loss"]), float(m["l1"])))
                 return state, m
 
-            def gt_rows(ids, pos, pcfg):
-                rows = real_rows(ids, pos, pcfg)
+            def gt_rows(batch, ids, pos_np, pcfg):
+                rows = real_rows(batch, ids, pos_np, pcfg)
                 if len(gt) < spec.get("gt_steps", 0):
-                    gt.append((ids.numpy(), pos.numpy(), rows.numpy()))
+                    gt.append((ids.numpy(), pos_np, rows.numpy()))
                 return rows
 
             tr._step, tr._gt_rows = step, gt_rows
@@ -850,5 +851,82 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
                  gt_ids=np.array([g[0] for g in gt]),
                  gt_pos=np.array([g[1] for g in gt]),
                  gt_rows=np.array([g[2] for g in gt]))
+    finally:
+        comm.destroy_group()
+
+
+def storage_worker(rank: int, world: int, port: int, spec_path: str,
+                   out_dir: str) -> None:
+    """One rank of a CPU run of the multi-rank loop over gloo under
+    ``--distributed_dataset_storage``, for tests/test_torch_gt_storage.py
+    (start with ``torch.multiprocessing``).
+
+    ``spec_path`` is a JSON file: ``scene_dir`` (a COLMAP scene),
+    ``llffhold`` and ``config`` (TrainConfig overrides, as
+    :func:`apply_config` takes them). The rank loads the scene with the
+    training CLI's ``make_decode_mask`` (its stride of the cameras decoded
+    at load, the rest lazy), then trains it twice from the same seed: at
+    preload threshold 0 (the ground truth stays on the host and the rank
+    packs its rows) and at 10 GB (the dataset is preloaded). It writes
+    ``out_dir/rank<rank>.npz``: the cameras stored at load, the lazy
+    decodes at load, each run's L1 history, lazy decodes and whether it
+    had a bank, and the preloaded run's bank."""
+    import json
+
+    from . import cameras as cam_mod
+    from .config import TrainConfig
+    from .data.scene import Scene
+    from .engine.trainer_dist import MultiRankTrainer
+    from .parallel import comm
+    from .scripts.train import make_decode_mask
+
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world))
+    comm.init_group("cpu")
+    try:
+        with open(spec_path) as f:
+            spec = json.load(f)
+
+        def config(threshold, name):
+            over = dict(spec["config"])
+            over["dist"] = dict(over.get("dist", {}),
+                                preload_dataset_to_gpu_threshold=threshold)
+            over["model"] = dict(over.get("model", {}),
+                                 model_path=os.path.join(
+                                     out_dir, f"{name}_rk{rank}"))
+            return apply_config(TrainConfig(), over)
+
+        n0 = cam_mod.LAZY_DECODE_COUNT[0]
+        scene = Scene(spec["scene_dir"], eval_split=True,
+                      llffhold=spec["llffhold"],
+                      decode_mask=make_decode_mask(config(0, "host"), world,
+                                                   rank))
+        out = dict(
+            names=[c.image_name for c in scene.train_cameras],
+            stored_train=[c.gt_image_u8 is not None
+                          for c in scene.train_cameras],
+            stored_test=[c.gt_image_u8 is not None
+                         for c in scene.test_cameras],
+            load_decodes=cam_mod.LAZY_DECODE_COUNT[0] - n0)
+        for name, threshold in (("host", 0), ("preloaded", 10)):
+            tr = MultiRankTrainer(config(threshold, name), scene,
+                                  device="cpu")
+            l1s, real_step = [], tr._step
+
+            def step(*args, real_step=real_step, l1s=l1s):
+                state, m = real_step(*args)
+                l1s.append(float(m["l1"]))
+                return state, m
+
+            tr._step = step
+            n1 = cam_mod.LAZY_DECODE_COUNT[0]
+            tr.train()
+            out[f"{name}_l1"] = l1s
+            out[f"{name}_decodes"] = cam_mod.LAZY_DECODE_COUNT[0] - n1
+            out[f"{name}_has_bank"] = tr._gt_bank is not None
+            if tr._gt_bank is not None:
+                out["bank"] = tr._gt_bank.numpy()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         comm.destroy_group()

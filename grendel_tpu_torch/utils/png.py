@@ -1,16 +1,19 @@
-"""PNG files without PIL: a writer and a reader for the tools.
+"""PNG files without PIL: a writer and a reader for the tools and the
+datasets.
 
-The render tool writes its images with :func:`write_png` and the metrics
-tool reads them with :func:`read_png`, on machines that have zlib and
-numpy but not PIL. The reader takes any 8-bit, non-interlaced grey, grey
-with alpha, RGB or RGBA PNG, with every row filter, so it also reads what
-PIL or another tool wrote.
+The render tool writes its images with :func:`write_png`, and the metrics
+tool and the dataset readers (data/readers.py, data/scene.py) read them
+with :func:`read_png`, on machines that have zlib and numpy but not PIL.
+The reader takes any 8-bit, non-interlaced grey, grey with alpha, RGB or
+RGBA PNG, with every row filter, so it also reads what PIL or another
+tool wrote; :func:`png_header` says whether it can.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -71,6 +74,31 @@ def _unfilter(kind: int, line: np.ndarray, prev: np.ndarray,
         else:
             raise ValueError(f"PNG row filter {kind}")
     return out
+
+
+class PngHeader(NamedTuple):
+    width: int
+    height: int
+    depth: int
+    colour_type: int
+    interlace: int
+
+    @property
+    def readable(self) -> bool:
+        """True when :func:`read_png` reads the file."""
+        return (self.depth == 8 and self.colour_type in _CHANNELS
+                and not self.interlace)
+
+
+def png_header(path: str) -> Optional[PngHeader]:
+    """The IHDR fields of a PNG file, or None when the file is not a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR" or len(head) < 29:
+        return None
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                        head[16:29])
+    return PngHeader(w, h, depth, ctype, interlace)
 
 
 def read_png(path: str) -> np.ndarray:

@@ -105,18 +105,21 @@ def test_pack_gt_rows_matches_jax():
             gt_override=list(gts[::-1])))
 
 
+@pytest.mark.parametrize("path", ["device", "host"])
 @pytest.mark.parametrize("pos", [[0, 1, 4, 6], [0, 3, 3, 6]])
-def test_device_gt_rows_match_jax_pack(pos):
-    """The multi-rank loop gathers each rank's ground-truth rows on its
-    device (engine/trainer_dist.py ``MultiRankTrainer._gt_rows``, which
-    stands in for the JAX package's native/gtpack.c): at an uneven division
-    of 2 cameras of 3 tile rows (the last half-padded) over 3 ranks, one
-    of them empty in the second case, every rank's rows equal
+def test_device_gt_rows_match_jax_pack(pos, path):
+    """The multi-rank loop's ground-truth rows of each rank
+    (engine/trainer_dist.py ``MultiRankTrainer._gt_rows``): gathered on
+    its device from a preloaded bank, or packed on the host over its own
+    span and uploaded (the JAX package's per-process pack): at an uneven
+    division of 2 cameras of 3 tile rows (the last half-padded) over 3
+    ranks, one of them empty in the second case, every rank's rows equal
     grendel_tpu's ``pack_gt_rows``."""
     import types
 
     import torch
 
+    from grendel_tpu_torch.engine.trainer import PinnedUpload
     from grendel_tpu_torch.engine.trainer_dist import MultiRankTrainer
     from grendel_tpu_torch.parallel.sharded import ParallelConfig
 
@@ -124,20 +127,24 @@ def test_device_gt_rows_match_jax_pack(pos):
     gts = np.random.default_rng(5).integers(0, 255, (3, 3, h, w),
                                             dtype=np.uint8)
     cams = [j_camera(w, h, angle=a) for a in (0.0, 0.2, 0.4)]
-    for c, g in zip(cams, gts):
-        c.gt_image_u8 = g
+    t_cams = [t_camera(w, h, angle=a) for a in (0.0, 0.2, 0.4)]
+    for c, tc, g in zip(cams, t_cams, gts):
+        c.gt_image_u8 = tc.gt_image_u8 = g
     batch = [cams[2], cams[0]]               # bank indices 2 and 0
     want = J.pack_gt_rows(batch, np.array(pos, np.int32), d, max_rows,
                           tile_h, h, w)
     loop = types.SimpleNamespace(
         cfg=types.SimpleNamespace(pipeline=types.SimpleNamespace(
             tile_h=tile_h)),
-        _tiles_y=3, img_h=h, img_w=w, device=torch.device("cpu"))
-    loop._gt_bank = MultiRankTrainer._make_gt_bank(loop, cams)
+        _tiles_y=3, img_h=h, img_w=w, device=torch.device("cpu"),
+        _upload_gt=PinnedUpload(torch.device("cpu")))
+    loop._gt_bank = (MultiRankTrainer._make_gt_bank(loop, t_cams)
+                     if path == "device" else None)
     pcfg = ParallelConfig(n_devices=d, bsz=2, img_h=h, img_w=w,
                           tile_h=tile_h, n_row_slots=max_rows)
     for rank in range(d):
         loop.rank = rank
-        got = MultiRankTrainer._gt_rows(loop, torch.tensor([2, 0]),
-                                        torch.tensor(pos), pcfg)
+        got = MultiRankTrainer._gt_rows(loop, [t_cams[2], t_cams[0]],
+                                        torch.tensor([2, 0]),
+                                        np.array(pos), pcfg)
         np.testing.assert_array_equal(got.numpy(), want[rank])
