@@ -14,11 +14,15 @@ Phases, each of which fails the run:
      back-to-back calls on one scratch, and across the wrap of the
      scratch's epoch;
   4. blend kernel K1 against its plain version on the main path's real
-     tile lists: max abs error <= 1e-5 on colors and on final_t; backward
-     blend kernel K2 against its plain version on the same lists with
-     random cotangents: every output finite, and max |K2 - plain| <=
-     1e-4 max |plain| for each (the slack covers the order of the float
-     atomics); both again on a saturating scene (opacity 0.999, 16x16
+     tile lists: max abs error <= 1e-5 on colors and on final_t; the
+     backward (kernel K2's per-entry rows, summed per Gaussian by kernel
+     K2s) against its plain version on the same lists with random
+     cotangents: every output finite, and max |K2 - plain| <= 1e-4 max
+     |plain| for each (the slack covers the order of the sums inside a
+     slot, which the two take differently); launched again, bit-equal to
+     itself; K2s on K2's rows bit-equal to its plain version (index_add_
+     on the CPU in entry order); all again on a saturating scene (opacity
+     0.999, 16x16
      tiles) and on a small scene at 32x8, 64x4 and 128x2 tiles, where
      both walk 2 or 1 pixels a thread on other warp patches; K1 alone on
      12x10 tiles (120 pixels, not a multiple of 32, which K2 refuses),
@@ -36,7 +40,10 @@ Phases, each of which fails the run:
      finite, the 10th loss below the 1st, and the state at iteration 20
      with Adam count 10; one train_step on the small flagship scene on the
      card must agree with the same step on the CPU (plain versions):
-     loss to 1e-5 relative, Adam moments to atol 1e-4, rtol 1e-3;
+     loss to 1e-5 relative, Adam moments to atol 1e-4, rtol 1e-3; the 10
+     steps run twice more from the first step's state must give
+     bit-equal losses and state leaves (K1, K2 and K2s launched in every
+     step: the launch counters cover K2s wherever they cover K2);
   7. the host training loop at full width, this slice's main path:
      Trainer on the raytraced StructuredSyntheticScene (1280x832, 8 train
      and 2 held-out views, 100,000 initial points), bsz 2 for 300
@@ -71,7 +78,9 @@ Phases, each of which fails the run:
      within 1e-5 of render_batch, and K1 and K2 held to their plain
      versions on each rank's flat tile lists; K3 bit-equal to its plain
      version on every scan of both simulations; each with its device time
-     per step, launches and peak memory;
+     per step, launches and peak memory; the 3 steps of each mode, and
+     each simulated step, run twice from one state: bit-equal losses,
+     leaves, gradients and images;
   11. the distributed host loop: phase 7's scene and schedule through
      ``MultiRankTrainer`` on a one-rank NCCL group, which drives
      DistributedTrainer (engine/trainer_dist.py; replicated at world size
@@ -80,7 +89,9 @@ Phases, each of which fails the run:
      (its replicated row lists and the tall image's loss cotangents), the
      same densify, growth, reset and resume checks, step-0 L1 within 1e-5
      relative of phase 7's, held-out PSNR within 0.3 dB of phase 7's and
-     n_alive within 2% of it; its iterations/s, wall and host enqueue
+     n_alive within 2% of it (the two loops take different code paths;
+     both repeat bit for bit, so the gap is the same on every run); its
+     iterations/s, wall and host enqueue
      time per step, device time and launches per step, synchronizing
      calls per step (torch's sync debug mode) and peak memory printed
      beside phase 7's, and both loops timed again in alternation (one,
@@ -116,7 +127,11 @@ Phases, each of which fails the run:
      2^22, and no step over capacity at it. Printed: entries a camera
      against the ceiling, the measured step's bytes and the loop's peak
      as shares of the card, the bytes a step takes per entry of capacity
-     (its peak at four capacities), the memory guard, iterations/s, the
+     (its peak at four capacities; from 2^27 to 2^28 entries within 5%
+     of utils/hbm.py BYTES_PER_ISECT_ENTRY), and a rank's on the flat
+     row-span lists (a simulated D=2 step at 2^27 and 2^28 entries a
+     rank; within 5% of BYTES_PER_FLAT_ENTRY), the int32 clamp of the
+     ceiling beside it, the memory guard, iterations/s, the
      device time and launches per step (profiler, 3 steps), K1-K3 on the
      4K step against their bounds, the set-up (raytrace) and phase
      seconds. Then the same scene through ``MultiRankTrainer`` on a
@@ -130,7 +145,9 @@ Phases, each of which fails the run:
      at ``--preload_dataset_to_gpu_threshold 0``, where no ground-truth
      bank may exist and each step packs its batch on the host and uploads
      it: step-0 L1 equal within 1e-6 relative, held-out PSNR rising in
-     both and within 0.3 dB; K1-K3 in every step and held against their
+     both; the two runs do the same arithmetic on the same bytes, so every
+     step's L1, the held-out PSNR and the alive count must be equal; K1-K3
+     in every step and held against their
      plain versions on the host run's last step; iterations/s, both runs
      again in alternation, the ground-truth stage's host ms and its time
      on the loop's timer, synchronizing calls per step and peak memory of
@@ -150,9 +167,10 @@ Phases, each of which fails the run:
      each kernel, its plain version and the library call (CUDA events,
      with the L2 cache flushed before each launch), beside the least time
      the card could take; each kernel also on the device's clock alone
-     (``device_ms``: the host's time to reach the launch hidden); K1 and
-     K2 also on the loop step's inputs, K3 per shape with its wrapper's
-     host time per call.
+     (``device_ms``: the host's time to reach the launch hidden); K2 alone
+     and K2s on its rows, with the sort between them and the whole VJP
+     printed; K1, K2 and K2s also on the loop step's inputs, K3 per shape
+     with its wrapper's host time per call.
 
 ``--save-k2 DIR`` also saves K2's inputs on the garden and on the loop's
 last step for grendel_tpu_torch/scripts/time_kernels.py. Prints one
@@ -187,6 +205,9 @@ K2_OPS_PER_BLENDED = 44
 TILE_W, TILE_H, MAX_PER_TILE, BSZ = 32, 16, 2048, 2
 K1_TOL = 1e-5
 K2_REL_TOL = 1e-4
+# K2s's max abs error against its plain version in every check (each must
+# be 0: both sum in entry order)
+K2S_ERRS = []
 # one small train_step, card vs CPU: each Adam moment leaf within this
 # much of its largest value (the rtol of the whole-step gradient bound)
 MOMENT_REL_TOL = 1e-3
@@ -439,29 +460,96 @@ def k1_check(what, blend_in, blend_kw):
 
 def blend_check(what, blend_in, blend_kw, g, g_t):
     """K1 and K2 against their plain versions on one set of tile lists: K1
-    within K1_TOL on colors and final_t; K2 on the cotangents ``g`` and
-    ``g_t`` finite and within K2_REL_TOL of each output's largest value.
+    within K1_TOL on colors and final_t; the backward (K2, then K2s on its
+    rows) on the cotangents ``g`` and ``g_t`` finite, within K2_REL_TOL of
+    each output's largest value, and bit-equal to itself when launched
+    again; K2s on K2's rows bit-equal to its plain version, which sums
+    them on the CPU in entry order (``K2S_ERRS`` keeps its max abs error).
     Returns K1's outputs, K2's keyword arguments and each kernel's max abs
     error."""
-    from grendel_tpu_torch.ops.rasterize_cuda import rasterize_slots_vjp
-    from grendel_tpu_torch.ops.rasterize_torch import rasterize_slots_bwd
+    from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_vjp,
+                                                      rasterize_slots_vjp_rows,
+                                                      segment_sum,
+                                                      split_grads)
+    from grendel_tpu_torch.ops.rasterize_torch import (rasterize_slots_bwd,
+                                                       segment_sum_rows)
 
     col_k, t_k, k1_err = k1_check(what, blend_in, blend_kw)
     bwd_kw = dict(blend_kw, c_total=col_k, final_t=t_k, g=g, g_t=g_t)
     d_k = rasterize_slots_vjp(*blend_in, **bwd_kw)
+    d_again = rasterize_slots_vjp(*blend_in, **bwd_kw)
     d_p = rasterize_slots_bwd(*blend_in, **bwd_kw)
+    ids, m = blend_in[4], blend_in[0].shape[0]
+    rows = rasterize_slots_vjp_rows(*blend_in, **bwd_kw)
+    d_rows = segment_sum(rows, m, torch.sort(ids.to(torch.int32).contiguous(),
+                                             stable=True))
     torch.cuda.synchronize()
     names = ("d_means2d", "d_conics", "d_colors", "d_opacities")
     require(all(bool(torch.isfinite(x).all()) for x in d_k),
             f"K2 output not finite ({what})")
+    require(all(torch.equal(a, b) for a, b in zip(d_k, d_again))
+            and all(torch.equal(a, b) for a, b in zip(d_k,
+                                                      split_grads(d_rows))),
+            f"K2 and K2s launched again differ from their first launch "
+            f"({what})")
     k2_rel = {n: rel_err(a, b) for n, a, b in zip(names, d_k, d_p)}
     k2_err = max(float((a - b).abs().max()) for a, b in zip(d_k, d_p))
     print(f"# K2 backward blend ({what}): max |K2 - plain| / max |plain| "
           f"{ {n: f'{e:.3e}' for n, e in k2_rel.items()} }, max abs err "
-          f"{k2_err:.3e} (tol {K2_REL_TOL} relative)")
+          f"{k2_err:.3e} (tol {K2_REL_TOL} relative); launched again: "
+          f"bit-equal")
     require(max(k2_rel.values()) <= K2_REL_TOL,
             f"K2 differs from its plain version ({what}): {k2_rel}")
+    plain = segment_sum_rows(rows.cpu(), ids.cpu(), m)
+    k2s_err = float((d_rows.cpu() - plain).abs().max()) if m else 0.0
+    print(f"# K2s segment sum ({what}): {ids.shape[0]} entry rows into {m} "
+          f"Gaussians, bit-equal to its plain version (index_add_ on the "
+          f"CPU in entry order): {torch.equal(d_rows.cpu(), plain)}")
+    require(torch.equal(d_rows.cpu(), plain),
+            f"K2s differs from its plain version ({what}): {k2s_err}")
+    K2S_ERRS.append(k2s_err)
     return col_k, t_k, bwd_kw, k1_err, k2_err
+
+
+def state_leaves(x, name="state"):
+    """(name, tensor) of every tensor in a nest of named tuples."""
+    if torch.is_tensor(x):
+        return [(name, x)]
+    if isinstance(x, tuple):
+        fields = getattr(x, "_fields", range(len(x)))
+        return [leaf for i, f in enumerate(fields)
+                for leaf in state_leaves(x[i], f"{name}.{f}")]
+    return []
+
+
+def clone_state(x):
+    """A copy of a nest of named tuples of tensors."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(clone_state(v) for v in x))
+    return x
+
+
+def repeat_check(what, run, state):
+    """``run`` twice from copies of ``state``, each returning (a state or
+    nest of tensors, the losses): every leaf and every loss must be
+    bit-equal between the two. Returns the number of leaves compared."""
+    outs = []
+    for _ in range(2):
+        outs.append(run(clone_state(state)))
+        torch.cuda.synchronize()
+    (a, la), (b, lb) = outs
+    leaves_a, leaves_b = state_leaves(a), state_leaves(b)
+    differ = [n for (n, x), (_, y) in zip(leaves_a, leaves_b)
+              if not torch.equal(x, y)]
+    print(f"# determinism ({what}): two runs from one state, "
+          f"{len(leaves_a)} leaves and {len(la)} losses compared, "
+          f"leaves that differ: {differ}, losses equal: {la == lb}")
+    require(len(leaves_a) == len(leaves_b) and not differ and la == lb,
+            f"two runs from one state differ ({what}): {differ}, losses "
+            f"{la} vs {lb}")
+    return len(leaves_a)
 
 
 def scan_check(what, calls):
@@ -872,7 +960,8 @@ def dist_loop_path(dev, tag, kernels_of, ref, model_path,
     127.0.0.1: K1-K3 in every step and held against their plain versions
     on the last step's inputs, step-0 L1 within 1e-5 relative of phase
     7's ``ref``, held-out PSNR rising and within 0.3 dB of phase 7's,
-    n_alive within 2% of it, and the resume; then both loops timed in
+    n_alive within 2% of it (another code path, so the gate stays; the
+    gap repeats from run to run), and the resume; then both loops timed in
     alternation. Returns the run's record and each kernel's max abs
     error."""
     import torch.distributed as dist
@@ -897,8 +986,8 @@ def dist_loop_path(dev, tag, kernels_of, ref, model_path,
         d_psnr = rec["psnr_after"] - ref["psnr_after"]
         d_alive = rec["n_alive"] / ref["n_alive"] - 1.0
         print(f"# distributed loop against phase 7: step-0 L1 relative err "
-              f"{l1_rel:.3e}, held-out PSNR {rec['psnr_after']:.3f} vs "
-              f"{ref['psnr_after']:.3f} dB ({d_psnr:+.3f}), alive "
+              f"{l1_rel:.3e}, held-out PSNR {rec['psnr_after']!r} vs "
+              f"{ref['psnr_after']!r} dB ({d_psnr:+.6f}), alive "
               f"{rec['n_alive']} vs {ref['n_alive']} ({d_alive:+.2%}), "
               f"{rec['ips']:.2f} vs {ref['ips']:.2f} iterations/s, wall "
               f"{rec['wall_ms']:.3f} vs {ref['wall_ms']:.3f} ms per step "
@@ -1181,6 +1270,16 @@ def distributed_path(dev, tag, kernels_of, cameras, tr, steps=DIST_STEPS):
             record[mode] = dict(loss_rel=loss_rel, mom_err=mom_err,
                                 render_err=render_err, peak_gib=peak,
                                 dev_ms=dev_ms, launches=per_kernel)
+
+            def dist_steps(st):
+                losses = []
+                for _ in range(steps):
+                    st, m = dt.step(st, tr.cams, gt_rows, pos, tr.bg)
+                    losses.append(float(m["loss"]))
+                return st, losses
+
+            repeat_check(f"{steps} DistributedTrainer steps ({mode}, world "
+                         f"size 1)", dist_steps, dt.shard_state(tr.state))
     finally:
         comm.destroy_group()
         del store
@@ -1244,6 +1343,12 @@ def distributed_path(dev, tag, kernels_of, cameras, tr, steps=DIST_STEPS):
             require(g_err <= K2_REL_TOL, f"simulated D=2 gradients differ "
                     f"from train_step's: {g_err}")
         print(line)
+
+        def sim_run(_):
+            o = sim()
+            return (o.grads, o.tap_grad, o.images), [float(o.loss)]
+
+        repeat_check(f"simulated D={d_count} step", sim_run, None)
         # K3 on the flat row-span expansion's scans of every rank
         require(calls["K3"], f"captured no K3 call at D={d_count}")
         sim_err["K3"] = max(sim_err.get("K3", 0), scan_check(
@@ -1483,8 +1588,9 @@ def tools_path(dev, tag, kernels_of, ref, model_path, step_dev_ms):
           f"train_step device time {step_dev_ms:.3f} ms {tag}")
     require(all(np.isfinite(v) and v > 0 for v in times.values()),
             f"a profile stage is not finite and positive: {times}")
-    for stage, need in (("full_step", "K1 K2 K3"), ("isect", "K3"),
-                        ("raster_fwd", "K1"), ("raster_fwd_bwd", "K1 K2"),
+    for stage, need in (("full_step", "K1 K2 K2s K3"), ("isect", "K3"),
+                        ("raster_fwd", "K1"),
+                        ("raster_fwd_bwd", "K1 K2 K2s"),
                         ("render_batch_fwd", "K1 K3")):
         require(all(launches[stage][k] > 0 for k in need.split()),
                 f"profile stage {stage} did not launch {need}: "
@@ -1549,6 +1655,7 @@ def fourk_path(dev, tag, kernels_of, timer, model_path, size=FOURK_SIZE,
     from grendel_tpu_torch.engine import trainer_dist
     from grendel_tpu_torch.engine.trainer import ISECT_CAP_CEILING
     from grendel_tpu_torch.scripts import train
+    from grendel_tpu_torch.utils import hbm
 
     t_phase = time.perf_counter()
     if iterations < FOURK_ITERS:
@@ -1666,7 +1773,8 @@ def fourk_path(dev, tag, kernels_of, timer, model_path, size=FOURK_SIZE,
           f"{rec['peak_entries']} at the peak "
           f"(entry capacity {tr._isect_cap()}) against the ceiling "
           f"{rec['ceiling']} ({rec['ceiling'] / ISECT_CAP_CEILING:.1f}x "
-          f"2^22); the last measured step took {step_bytes / 2**30:.2f} GiB "
+          f"2^22; the int32 clamp {hbm.ENTRY_CAP_MAX}); the last measured "
+          f"step took {step_bytes / 2**30:.2f} GiB "
           f"({step_bytes / total:.1%} of the card's {total / 2**30:.2f} "
           f"GiB); the run's peak {peak / 2**30:.2f} GiB allocated "
           f"({peak / total:.1%}; {base / 2**30:.2f} GiB held before the "
@@ -1684,6 +1792,7 @@ def fourk_path(dev, tag, kernels_of, timer, model_path, size=FOURK_SIZE,
     print(f"# 4K step device time {rec['dev_ms']:.3f} ms, launches per step "
           f"{rec['launches']}, {sum(r[1] for r in rows):.0f} in all {tag}")
     rec["bytes_per_entry"] = entry_bytes(tr, tag)
+    rec["bytes_per_entry"]["flat"] = flat_entry_bytes(tr, tag)
     rec["kernels"] = step_kernel_times(timer, tag, k2_in, "the 4K step",
                                        chunk=16)
     for xs in k3_in:
@@ -1706,7 +1815,9 @@ def entry_bytes(tr, tag):
     run's own entry capacity and twice it, and at FOURK_ENTRY_PROBE (2^27)
     entries and twice that, where the tile lists set the peak; returns the
     slopes of both pairs (the second is the device bytes per entry that
-    ``BYTES_PER_ISECT_ENTRY`` holds)."""
+    ``BYTES_PER_ISECT_ENTRY`` holds, and must be within 5% of it)."""
+    from grendel_tpu_torch.utils import hbm
+
     ids = torch.zeros(1, dtype=torch.long, device=tr.device)
     cams = type(tr._cam_bank)(*(x[ids] for x in tr._cam_bank))
     own = tr._isect_cap()
@@ -1729,8 +1840,72 @@ def entry_bytes(tr, tag):
     print(f"# bytes a 4K step takes per entry of capacity: step peak "
           f"{ {c: round(p / 2**30, 3) for c, p in peaks.items()} } GiB at "
           f"those capacities; {low:.2f} bytes an entry from {own} to "
-          f"{2 * own}, {high:.2f} from {big} to {2 * big} {tag}")
+          f"{2 * own}, {high:.2f} from {big} to {2 * big} (camera-blocked "
+          f"lists; utils/hbm.py BYTES_PER_ISECT_ENTRY "
+          f"{hbm.BYTES_PER_ISECT_ENTRY}) {tag}")
+    require(abs(hbm.BYTES_PER_ISECT_ENTRY / high - 1.0) <= 0.05,
+            f"BYTES_PER_ISECT_ENTRY {hbm.BYTES_PER_ISECT_ENTRY} is more "
+            f"than 5% from the measured {high:.2f}")
     return {"own": low, "tile_lists": high}
+
+
+def flat_entry_bytes(tr, tag, d_count=2):
+    """The bytes one rank's step takes per entry of its capacity on the
+    flat row-span lists (ops/isect.py isect_tile_rows, the lists of a rank
+    at D > 1): a simulated D=2 step (testing.simulate_distributed, the
+    rows split in half) of the trained 4K model on its first training
+    view, its peak at FOURK_ENTRY_PROBE (2^27) entries a rank and twice
+    that, where the lists set the peak. The simulation holds both ranks'
+    graphs, so rank 0's saved entry ids (4 bytes an entry) are live while
+    rank 1 builds its lists: the slope is a rank's own and those 4 bytes.
+    Returns the slope, which the multi-rank loop's constant at D > 1
+    (utils/hbm.py ``BYTES_PER_FLAT_ENTRY``) must be within 5% of."""
+    from grendel_tpu_torch.cameras import batch_camera_arrays
+    from grendel_tpu_torch.parallel.division import pack_gt_rows
+    from grendel_tpu_torch.parallel.sharded import ParallelConfig
+    from grendel_tpu_torch.testing import simulate_distributed
+    from grendel_tpu_torch.utils import hbm
+
+    rcfg = tr.render_config()
+    cam = tr.scene.train_cameras[0]
+    n = tr.state.alive.shape[0]
+    base = ParallelConfig(n_devices=d_count, bsz=1, img_h=rcfg.img_h,
+                          img_w=rcfg.img_w, tile_w=rcfg.tile_w,
+                          tile_h=rcfg.tile_h, max_per_tile=rcfg.max_per_tile)
+    pos_np = np.array([0, base.tiles_y // 2, base.tiles_y], np.int32)
+    pos = torch.as_tensor(pos_np, device=tr.device)
+    cams = batch_camera_arrays([cam], tr.device)
+    peaks, rows = {}, None
+    for cap in (FOURK_ENTRY_PROBE, 2 * FOURK_ENTRY_PROBE):
+        cfg = base._replace(isect_capacity=cap).resolved(n // d_count)
+        if rows is None:
+            rows = torch.as_tensor(pack_gt_rows(
+                [cam], pos_np, d_count, cfg.n_row_slots, cfg.tile_h,
+                cfg.img_h, cfg.img_w), device=tr.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = simulate_distributed(tr.state.params, tr.state.alive, cams,
+                                   rows, pos, tr.bg, cfg, 0,
+                                   tr.cfg.opt.lambda_dssim)
+        torch.cuda.synchronize()
+        peaks[cap] = torch.cuda.max_memory_allocated()
+        require(bool(torch.isfinite(out.loss)), "non-finite loss of the "
+                "simulated 4K step")
+        del out
+    slope = (peaks[2 * FOURK_ENTRY_PROBE]
+             - peaks[FOURK_ENTRY_PROBE]) / FOURK_ENTRY_PROBE
+    const = hbm.BYTES_PER_FLAT_ENTRY
+    print(f"# bytes a rank's 4K step takes per entry of capacity, flat "
+          f"row-span lists (simulated D={d_count}, rows split at "
+          f"{pos_np.tolist()}): step peak "
+          f"{ {c: round(p / 2**30, 3) for c, p in peaks.items()} } GiB; "
+          f"{slope:.2f} bytes an entry from {FOURK_ENTRY_PROBE} to "
+          f"{2 * FOURK_ENTRY_PROBE} (utils/hbm.py BYTES_PER_FLAT_ENTRY "
+          f"{const}) {tag}")
+    require(abs(const / slope - 1.0) <= 0.05, f"the multi-rank loop's "
+            f"bytes per entry {const} is more than 5% from the measured "
+            f"{slope:.2f}")
+    return slope
 
 
 def fourk_dist(dev, tag, kernels_of, scene, cfg, iterations, model_path):
@@ -1746,6 +1921,7 @@ def fourk_dist(dev, tag, kernels_of, scene, cfg, iterations, model_path):
     from grendel_tpu_torch.engine.trainer import ISECT_CAP_CEILING
     from grendel_tpu_torch.engine.trainer_dist import MultiRankTrainer
     from grendel_tpu_torch.parallel import comm
+    from grendel_tpu_torch.utils import hbm
 
     cfg = dataclasses.replace(
         cfg, test_iterations=[], save_iterations=[], checkpoint_iterations=[],
@@ -1784,7 +1960,8 @@ def fourk_dist(dev, tag, kernels_of, scene, cfg, iterations, model_path):
     top = int(torch.stack(entries).max())
     print(f"# 4K distributed loop ({iterations} iterations, world size 1, "
           f"nccl): entries a rank up to {top} against its ceiling "
-          f"{mt.isect_capacity_ceiling} (readings {mt.hbm_readings}); "
+          f"{mt.isect_capacity_ceiling} (the int32 clamp "
+          f"{hbm.ENTRY_CAP_MAX}; readings {mt.hbm_readings}); "
           f"capacity events {mt.capacity_events}; launches {totals}; "
           f"{secs:.1f} s {tag}")
     require(len(entries) == iterations, f"the 4K distributed loop ran "
@@ -1905,6 +2082,7 @@ def storage_cli_run(dev, kernels_of, argv, what, calls=None):
         len(pairs), 1)
     run["gt_host_ms"] = statistics.median(run["gt_ms"])
     run["psnr_after"] = tr.eval_psnr(tr.scene.test_cameras, 0)
+    run["n_alive"] = tr._n_alive()
     sites = sync_sites(
         lambda: tr.train(int(tr.state.iteration) + 5 * BSZ))
     run["syncs"] = sum(sites.values()) / 5
@@ -1974,8 +2152,18 @@ def storage_path(dev, tag, kernels_of, scene, tmp,
     for r, name in ((pre, "preloaded"), (host, "host-path")):
         require(r["psnr_after"]["psnr"] > r["psnr_before"]["psnr"],
                 f"{name} run: held-out PSNR did not rise")
-    require(abs(d_psnr) <= 0.3, f"held-out PSNR of the host path differs "
-            f"from the preloaded by {d_psnr:.3f} dB")
+    # the two paths run the same arithmetic on the same bytes, and like
+    # runs repeat bit for bit: every step's L1, the held-out PSNR and the
+    # alive count must be equal
+    same_l1 = torch.equal(host["l1"], pre["l1"])
+    print(f"# (a) host path against preloaded, {len(pre['l1'])} steps: L1 "
+          f"of every step equal: {same_l1}; held-out PSNR "
+          f"{host['psnr_after']['psnr']!r} vs {pre['psnr_after']['psnr']!r} "
+          f"dB; alive {host['n_alive']} vs {pre['n_alive']}")
+    require(same_l1 and d_psnr == 0.0 and host["n_alive"] == pre["n_alive"],
+            f"the host path differs from the preloaded: L1 equal {same_l1}, "
+            f"PSNR {d_psnr:+.6f} dB, alive {host['n_alive']} vs "
+            f"{pre['n_alive']}")
     one, other = alternating_walls(pre["trainer"], host["trainer"], 15)
     ratio = sum(one) / sum(other)
     print(f"# (a) host path against preloaded: step-0 L1 relative err "
@@ -2233,11 +2421,12 @@ def memory_runs(dev, kernels_of, views, size, iterations, model_path, tag):
 
 
 def step_kernel_times(timer, tag, k2_in, what, chunk=64):
-    """K1 and K2 timed on the inputs one training step (``what``) gave
-    K2, beside the least time the card could take for them (``walked_pairs``
-    in steps of ``chunk`` entries). Returns each one's times and bound."""
+    """K1, K2 and K2s timed on the inputs one training step (``what``)
+    gave K2, beside the least time the card could take for them
+    (``walked_pairs`` in steps of ``chunk`` entries). Returns each one's
+    times and bound."""
     from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_fwd,
-                                                      rasterize_slots_vjp)
+                                                      rasterize_slots_vjp_rows)
 
     (m2d, con, col, op, ids, lo, hi, px0, py0, tw, th, mpt, c_total, final_t,
      g, g_t) = k2_in
@@ -2251,9 +2440,9 @@ def step_kernel_times(timer, tag, k2_in, what, chunk=64):
             ("K1", lambda: rasterize_slots_fwd(*blend_in, **fwd_kw),
              m2d.shape[0] * 9 * 4 + ids.numel() * 4 + 4 * lo.numel() * 4
              + final_t.numel() * 4 * 4, K1_OPS_PER_PAIR * pairs),
-            ("K2", lambda: rasterize_slots_vjp(*blend_in, **bwd_kw),
-             m2d.shape[0] * 18 * 4 + ids.numel() * 4 + 4 * lo.numel() * 4
-             + final_t.numel() * 8 * 4,
+            ("K2", lambda: rasterize_slots_vjp_rows(*blend_in, **bwd_kw),
+             m2d.shape[0] * 9 * 4 + ids.numel() * (4 + 9 * 4)
+             + 4 * lo.numel() * 4 + final_t.numel() * 8 * 4,
              K1_OPS_PER_PAIR * pairs + K2_OPS_PER_BLENDED * blended)):
         bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * ops / FP32_OPS_PER_S
@@ -2268,14 +2457,52 @@ def step_kernel_times(timer, tag, k2_in, what, chunk=64):
               f"splats): {work}; {r['ms']:.4f} ms (device alone "
               f"{r['device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) {tag}")
+    out["K2s"] = k2s_times(timer, tag, rasterize_slots_vjp_rows(
+        *blend_in, **bwd_kw), ids, m2d.shape[0], what)
     return out
 
 
+def k2s_times(timer, tag, rows, ids, m, what):
+    """K2s on K2's ``rows`` of one call (``ids`` its entries' Gaussians, m
+    of them): its time with the ids already sorted (the VJP sorts them
+    before K2 runs) beside the sort's, its plain version's on the card, the
+    library's (one ``index_add_``, which adds with atomics in no fixed
+    order) and its bound: what the function must move, each entry's id read
+    once, the rows of the entries it sums (ids in [0, m): the list
+    builders give every entry outside the spans the sentinel) read once,
+    the m rows written. Returns the kernels line's fields."""
+    from grendel_tpu_torch.ops.rasterize_cuda import segment_sum
+    from grendel_tpu_torch.ops.rasterize_torch import segment_sum_rows
+
+    ids = ids.to(torch.int32).contiguous()
+    order = torch.sort(ids, stable=True)
+    seg = torch.where((ids >= 0) & (ids < m), ids.long(),
+                      torch.full_like(ids, m, dtype=torch.long))
+    acc = torch.zeros(m + 1, rows.shape[1], device=rows.device)
+    k2s = lambda: segment_sum(rows, m, order)  # noqa: E731
+    lengths = torch.bincount(seg, minlength=m + 1)[:m]
+    n_summed = int(lengths.sum())
+    n_bytes = ids.numel() * 4 + (n_summed + m) * rows.shape[1] * 4
+    r = {"ms": timer.ms(k2s, 20), "device_ms": timer.device_ms(k2s, 20),
+         "plain_ms": timer.ms(lambda: segment_sum_rows(rows, ids, m), 20),
+         "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+         "library_ms": timer.ms(lambda: acc.index_add_(0, seg, rows), 20)}
+    sort_ms = timer.ms(lambda: torch.sort(ids, stable=True), 20)
+    print(f"# K2s on {what}: {ids.numel()} entry rows, {n_summed} of them "
+          f"summed, into {m} Gaussians (segments of up to {int(lengths.max()) if m else 0} entries, "
+          f"{int((lengths > 0).sum())} non-empty), {n_bytes} bytes; "
+          f"{r['ms']:.4f} ms (device alone {r['device_ms']:.4f} ms), the "
+          f"sort before it {sort_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"library (index_add_) {r['library_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms (bytes) {tag}")
+    return r
+
+
 def kernel_launches(rows):
-    """Launches per call of K1, K2 and K3 in a profile's rows."""
+    """Launches per call of K1, K2, K2s and K3 in a profile's rows."""
     return {k: sum(n for _, n, key in rows if name in key)
             for k, name in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd"),
-                            ("K3", "scan"))}
+                            ("K2s", "segment_sum_kernel"), ("K3", "scan"))}
 
 
 def main(argv=None):
@@ -2301,8 +2528,8 @@ def main(argv=None):
     from grendel_tpu_torch.models.gaussian_model import GaussianParams
     from grendel_tpu_torch.models.optimizer import adam_step
     from grendel_tpu_torch.ops import rasterize_cuda, scan_cuda
-    from grendel_tpu_torch.ops.rasterize_torch import (rasterize_slots,
-                                                       rasterize_slots_bwd)
+    from grendel_tpu_torch.ops.rasterize_torch import (
+        rasterize_slots, rasterize_slots_bwd_rows)
     from grendel_tpu_torch.testing import (flagship_inputs, flagship_training,
                                            garden_blend_inputs,
                                            garden_render_config, garden_scene,
@@ -2321,6 +2548,7 @@ def main(argv=None):
     tag = f"[{card}]"
     k1 = rasterize_cuda.rasterize_slots_fwd
     k2 = rasterize_cuda.rasterize_slots_vjp
+    k2s = rasterize_cuda.segment_sum
     k3 = scan_cuda.cumsum_i32_multi
 
     # --- 2. build -------------------------------------------------------
@@ -2449,7 +2677,8 @@ def main(argv=None):
     # --- 6. the training path (the main path) ------------------------------
     tr = garden_training(seed=0, device=dev)
     require(tr.cfg == cfg, "garden_training sized another render config")
-    kernels_of = {"K1": k1, "K2": k2, "K3": k3}
+    kernels_of = {"K1": k1, "K2": k2, "K2s": k2s, "K3": k3}
+    state0 = clone_state(tr.state)
     state, losses, launches = train_phase(kernels_of, tr, TRAIN_STEPS)
     print(f"# training path, {TRAIN_STEPS} steps: launches {launches}, loss "
           f"{losses[0]:.6f} -> {losses[-1]:.6f}")
@@ -2488,6 +2717,18 @@ def main(argv=None):
           f"{loss_rel:.3e}, Adam moments max err / max {mom_err:.3e} "
           f"(limit {MOMENT_REL_TOL})")
     require(loss_rel <= 1e-5, f"card loss differs from CPU: {loss_rel}")
+
+    # the same steps again, twice from the first step's state: like runs
+    # repeat bit for bit
+    def garden_steps(st):
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            st, m = tr.step(st)
+            losses.append(float(m["loss"]))
+        return st, losses
+
+    repeat_check(f"{TRAIN_STEPS} garden train_steps", garden_steps, state0)
+    del state0
 
     stamp(t_start, "training path checked")
 
@@ -2635,13 +2876,18 @@ def main(argv=None):
           f"ms, bound {k1_bound:.4f} ms "
           f"({k1_bound_by}) {tag}")
 
-    k2_ms = timer.ms(lambda: k2(*blend_in, **bwd_kw), 20)
-    k2_dev_ms = timer.device_ms(lambda: k2(*blend_in, **bwd_kw), 20)
-    k2_plain_ms = timer.ms(lambda: rasterize_slots_bwd(*blend_in, **bwd_kw),
-                           1)
+    # K2 alone (its rows), then K2s on them; the backward also sorts the
+    # entry ids, and the whole VJP is timed beside the two
+    k2_rows = lambda: rasterize_cuda.rasterize_slots_vjp_rows(  # noqa: E731
+        *blend_in, **bwd_kw)
+    k2_ms = timer.ms(k2_rows, 20)
+    k2_dev_ms = timer.device_ms(k2_rows, 20)
+    k2_plain_ms = timer.ms(
+        lambda: rasterize_slots_bwd_rows(*blend_in, **bwd_kw), 1)
+    vjp_ms = timer.ms(lambda: k2(*blend_in, **bwd_kw), 20)
     # inputs: the splats, ids and spans, c_total, final_t and the two
-    # cotangents (8 floats per pixel); output: 9 floats per Gaussian
-    k2_bytes = splat_bytes + n_pix * 8 * 4 + m * 9 * 4
+    # cotangents (8 floats per pixel); output: 9 floats per entry
+    k2_bytes = splat_bytes + n_pix * 8 * 4 + ids.numel() * 9 * 4
     k2_bytes_ms = 1e3 * k2_bytes / HBM_BYTES_PER_S
     k2_ops = K1_OPS_PER_PAIR * pairs + K2_OPS_PER_BLENDED * blended
     k2_ops_ms = 1e3 * k2_ops / FP32_OPS_PER_S
@@ -2649,8 +2895,9 @@ def main(argv=None):
     k2_bound_by = "operations" if k2_ops_ms >= k2_bytes_ms else "bytes"
     print(f"# K2: {k2_ops} operations, {k2_bytes} bytes; {k2_ms:.4f} ms "
           f"(device alone {k2_dev_ms:.4f} ms), plain {k2_plain_ms:.2f} ms, "
-          f"bound {k2_bound:.4f} ms "
-          f"({k2_bound_by}) {tag}")
+          f"bound {k2_bound:.4f} ms ({k2_bound_by}); the whole VJP (sort, "
+          f"K2, K2s) {vjp_ms:.4f} ms {tag}")
+    k2s_row = k2s_times(timer, tag, k2_rows(), ids, m, "the garden")
     # K1 and K2 on the inputs of the loop's last step: a trained scene
     # blends far more of its walked pairs than the random garden
     step_kernel_times(timer, tag, step_k2_in, "a loop step")
@@ -2691,13 +2938,13 @@ def main(argv=None):
 
     # ms: the clock of the kernels line, on which the card may wait for
     # the host to reach the launch; device_ms: the device's time alone.
-    # launches: K1-K3 over the host training loop's steps, K4 and K5 over
-    # the microbenchmark's run; max_abs_err: the larger of the checks on
-    # the garden's inputs, on the last step of each host loop (phases 7, 11,
-    # 13 and 14), on the simulated distributed steps and on the tools' inputs
-    # (phase 12: a render-tool batch, a profile_step full_step and isect)
-    # (K1-K3), and of the microbenchmark's own check and the odd chunk
-    # count's (K4, K5)
+    # launches: K1-K3 and K2s over the host training loop's steps, K4 and
+    # K5 over the microbenchmark's run; max_abs_err: the larger of the
+    # checks on the garden's inputs, on the last step of each host loop
+    # (phases 7, 11, 13 and 14), on the simulated distributed steps and on
+    # the tools' inputs (phase 12: a render-tool batch, a profile_step
+    # full_step and isect) (K1-K3; K2s in every check K2 has), and of the
+    # microbenchmark's own check and the odd chunk count's (K4, K5)
     kernels_line = {"kernels": [
         {"name": "rasterize_fwd", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/rasterize_fwd.cu",
@@ -2731,6 +2978,13 @@ def main(argv=None):
                             fourk_errs["K2"], storage_errs["K2"]),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
+        # K2s: the same function as the segment sum that follows the TPU
+        # kernel (no pallas_call of its own); on the garden's K2 rows
+        {"name": "segment_sum", "route": "cuda",
+         "source": "grendel_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "grendel_tpu/ops/rasterize_pallas.py:648",
+         "launches": loop_launches["K2s"], "max_abs_err": max(K2S_ERRS),
+         **k2s_row},
         # library: torch.sum over the int32 view (K4), the PyTorch row
         # gather table[ids].sum() (K5)
         {"name": "dma_contig", "route": "cuda",

@@ -1,14 +1,16 @@
 // K2: backward of the front-to-back alpha blend (the VJP of K1).
 //
 // Replaces grendel_tpu/ops/rasterize_pallas.py:262 _bwd_kernel (launched by
-// _core_bwd:582) together with the segment-sum that follows it there
-// (:621-660). Given the forward's inputs, its outputs c_total (T, P, 3)
+// _core_bwd:582), which writes one gradient row per entry (d_payload,
+// :614-619) for the segment-sum that follows it there (:621-653). K2 does
+// the same: given the forward's inputs, its outputs c_total (T, P, 3)
 // (before background) and final_t (T, P), and the cotangents g (T, P, 3)
-// and g_t (T, P), it adds per Gaussian
+// and g_t (T, P), it stores for every entry e of a slot's span its sums
+// over the slot's pixels of
 //   d_means2d (2), d_conics (3), d_colors (3), d_opacity (1)
-// into columns 0-8 of a zeroed (n_gauss, 12) float buffer (rows of 48
-// bytes, so that two 16-byte atomics and one scalar atomic add a row's
-// nine sums). For every entry a pixel blended:
+// into row e of an (n_entries, 9) float buffer (36 bytes an entry), which
+// it zeroes first. K2s (segment_sum.cu) then sums each Gaussian's rows in
+// ascending entry order. For every entry a pixel blended:
 //   T_i    = transmittance before entry i;  w_i = alpha_i T_i
 //   s_i    = sum_{j <= i} w_j (g . c_j)                  (running prefix)
 //   dalpha = T_i (g . c_i) - (g . c_total - s_i + T_fin g_t) / (1 - alpha_i)
@@ -17,12 +19,21 @@
 //   d_x = dpower (a dx + b dy)   d_y = dpower (c dy + b dx)
 //   d_a = -0.5 dpower dx^2   d_b = -dpower dx dy   d_c = -0.5 dpower dy^2
 //   d_rgb = w_i g            d_o = dalpha exp(power)
-// Ids outside [0, n_gauss) are the sentinel and contribute nothing.
+// Ids outside [0, n_gauss) are the sentinel: their rows are zero. Spans
+// must not overlap (each entry belongs to at most one slot, as in the
+// reference's d_payload); entries that no span reaches, that lie past
+// max_per_tile, or that a block leaves unwalked when all its pixels have
+// stopped keep the zero of the memset. The list builders (ops/isect.py)
+// give every entry outside the spans the sentinel id, so K2s drops them
+// (the reference drops the same entries by their position, _core_bwd's
+// in_span).
 //
 // Bound on an H100: operations. Each (entry, pixel) pair walked costs one
 // expf and K1's 16 f32 operations to rebuild alpha and T; each pair the
 // forward blended costs about 44 more (the gradient arithmetic and the 9
-// adds that sum the pair into its entry). The bytes are a few tens of MB.
+// adds that sum the pair into its entry). The bytes are a few tens of MB
+// of inputs, and the rows: 36 bytes an entry written twice (the memset and
+// the store).
 //
 // Design. The stop rule stays bit for bit: every pixel re-walks K1's exact
 // sequence of f32 operations (built with --fmad=false, like K1, no fast
@@ -32,8 +43,8 @@
 // any pixel of a warp blended) spent most of its time summing. Now:
 //   * Each thread walks kPpt pixels (4 on a slot whose height is a
 //     multiple of 16: 128 threads for a 32x16 slot) and sums their 9
-//     gradients per entry in registers; the entry's fields are read from
-//     shared memory once for all of them.
+//     gradients per entry in registers, in pixel order; the entry's fields
+//     are read from shared memory once for all of them.
 //   * A warp covers a compact patch instead of a row (8x16 at 4 pixels a
 //     thread), so fewer warps find a blended pixel for an entry. The patch
 //     is patch_w x 32/patch_w lanes, each lane's kPpt pixels stacked down
@@ -47,26 +58,25 @@
 //     (blend_common.cuh).
 //   * The 9 per-warp sums take a transposed butterfly: a reduce-scatter of
 //     8 values over lanes (4 + 2 + 1 shuffles, then 2 to finish) and one
-//     5-shuffle sum for the ninth, 14 shuffles instead of 45. The nine
-//     sums end on nine lanes, which write them in one instruction.
+//     5-shuffle sum for the ninth, 14 shuffles instead of 45, in a fixed
+//     pattern. The nine sums end on nine lanes, which write them in one
+//     instruction.
 //   * No shared atomics: each warp writes its nine sums for the entry into
 //     its own slice of shared memory (kBatch entries a batch); after the
-//     batch one pass sums the slices per entry.
-//   * Each entry's row is added to device memory with two float4 atomics
-//     and one float atomic (sm_90), instead of nine float atomics.
-// Blocks run in no order, so the atomics take the place of the TPU
-// kernel's read-modify-write of the chunk shared with the previous tile,
-// which relies on a sequential grid. The block leaves the span once
-// __syncthreads_count finds no live pixel. The order of the float sums
-// changes from run to run: results agree with the plain version
-// (ops/rasterize_torch.py rasterize_slots_bwd) up to reassociation.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (cold L2; chip_smoke.py
-// and grendel_tpu_torch/scripts/time_kernels.py): 0.964-0.967 ms on the
-// garden's tile lists against a 0.163 ms bound (the first design: 2.92
-// ms), and 1.42-1.43 ms on a training-loop step against 0.215 ms (3.90 ms
-// before). On the garden 2 pixels a thread measured 1.056 ms and 1 pixel
-// 1.515 ms; shared atomics in place of the slices 1.218 ms; no patch
-// reject 1.324 ms.
+//     batch one pass sums the slices per entry in warp order and stores the
+//     entry's row, consecutive threads on consecutive floats of the rows.
+// Every sum is taken in an order fixed by the slot's shape, and no float
+// atomic is used: like inputs give like bits on every run, and K2s keeps
+// that through the reduction. Results agree with the plain version
+// (ops/rasterize_torch.py rasterize_slots_bwd_rows) up to reassociation
+// inside the slot.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (cold L2; chip_smoke.py):
+// 0.967 ms on the garden's tile lists against a 0.163 ms bound, 1.438 ms
+// on a training-loop step against 0.215 ms and 7.558 ms on the 4K step
+// against 1.401 ms. Other designs, measured on the garden when K2 still
+// added each entry's sums into its Gaussian with float atomics: the first
+// design 2.92 ms; 2 pixels a thread 1.056 ms and 1 pixel 1.515 ms; shared
+// atomics in place of the slices 1.218 ms; no patch reject 1.324 ms.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -80,8 +90,7 @@ using gts_blend::kAlphaClamp;
 using gts_blend::kAlphaMin;
 using gts_blend::kMaxPixels;
 using gts_blend::kTEps;
-constexpr int kGrads = 9;   // d_x d_y d_a d_b d_c d_r d_g d_b d_o
-constexpr int kRow = 12;    // floats per Gaussian in d_out
+constexpr int kGrads = 9;   // d_x d_y d_a d_b d_c d_r d_g d_b d_o: a row
 constexpr int kBatch = 128;  // entries gathered into shared memory at once
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -143,7 +152,7 @@ rasterize_bwd_kernel(const float* __restrict__ means2d,
                      const float* __restrict__ final_t,
                      const float* __restrict__ g_colors,
                      const float* __restrict__ g_t,
-                     float* __restrict__ d_out) {
+                     float* __restrict__ d_rows) {
   extern __shared__ float smem[];
   const int n_threads = blockDim.x;
   const int n_warps = n_threads >> 5;
@@ -158,9 +167,8 @@ rasterize_bwd_kernel(const float* __restrict__ means2d,
   float* s_o = s_bl + kBatch;
   float* s_rx = s_o + kBatch;   // the ellipse's half extents, for rejects
   float* s_ry = s_rx + kBatch;
-  int32_t* s_id = reinterpret_cast<int32_t*>(s_ry + kBatch);
   // the warps' slices of sums, (n_warps, kGrads, kBatch)
-  float* s_d = reinterpret_cast<float*>(s_id + kBatch);
+  float* s_d = s_ry + kBatch;
 
   const int lanes_h = 32 / patch_w;   // lane rows of the warp's patch
   const int patch_h = lanes_h * kPpt;
@@ -223,13 +231,11 @@ rasterize_bwd_kernel(const float* __restrict__ means2d,
         s_g[i] = colors[3 * g + 1];
         s_bl[i] = colors[3 * g + 2];
         s_o[i] = o;
-        s_id[i] = id;
         gts_blend::blend_extent(a, b, c, o, &rx, &ry);
       } else {
         s_x[i] = s_y[i] = s_a[i] = s_b[i] = s_c[i] = 0.0f;
         s_r[i] = s_g[i] = s_bl[i] = 0.0f;
         s_o[i] = 0.0f;  // alpha 0: skipped by every pixel
-        s_id[i] = -1;
       }
       s_rx[i] = rx;
       s_ry[i] = ry;
@@ -299,30 +305,16 @@ rasterize_bwd_kernel(const float* __restrict__ means2d,
       }
     }
     __syncthreads();
-    // sum the warps' slices into warp 0's
-    for (int i = tid; i < kGrads * cnt; i += n_threads) {
-      const int q = i / cnt;
-      const int idx = q * kBatch + (i - q * cnt);
+    // each entry's row: the warps' slices summed in warp order, stored to
+    // rows [start, start + cnt) of d_rows (kGrads * cnt consecutive floats)
+    float* out = d_rows + start * kGrads;
+    const int64_t n_out = start < 0 ? 0 : (n_entries - start) * kGrads;
+    for (int i = tid; i < kGrads * cnt && i < n_out; i += n_threads) {
+      const int j = i / kGrads;
+      const int idx = (i - j * kGrads) * kBatch + j;
       float acc = s_d[idx];
       for (int w = 1; w < n_warps; ++w) acc += s_d[w * kGrads * kBatch + idx];
-      s_d[idx] = acc;
-    }
-    __syncthreads();
-    for (int j = tid; j < cnt; j += n_threads) {
-      if (s_id[j] < 0) continue;
-      float* row = d_out + (int64_t)s_id[j] * kRow;
-      const float4 lo4 = make_float4(s_d[j], s_d[kBatch + j],
-                                     s_d[2 * kBatch + j], s_d[3 * kBatch + j]);
-      const float4 hi4 = make_float4(s_d[4 * kBatch + j], s_d[5 * kBatch + j],
-                                     s_d[6 * kBatch + j], s_d[7 * kBatch + j]);
-      const float o = s_d[8 * kBatch + j];
-      if (lo4.x != 0.0f || lo4.y != 0.0f || lo4.z != 0.0f || lo4.w != 0.0f) {
-        atomicAdd(reinterpret_cast<float4*>(row), lo4);
-      }
-      if (hi4.x != 0.0f || hi4.y != 0.0f || hi4.z != 0.0f || hi4.w != 0.0f) {
-        atomicAdd(reinterpret_cast<float4*>(row + 4), hi4);
-      }
-      if (o != 0.0f) atomicAdd(row + 8, o);
+      out[i] = acc;
     }
     // also the barrier before the next batch overwrites shared memory
     bool any_live = false;
@@ -339,12 +331,12 @@ int launch(const void* means2d, const void* conics, const void* colors,
            const void* slot_px0, const void* slot_py0, int n_slots,
            int tile_w, int tile_h, int patch_w, int max_per_tile,
            const void* c_total, const void* final_t, const void* g_colors,
-           const void* g_t, void* d_out, cudaStream_t stream) {
+           const void* g_t, void* d_rows, cudaStream_t stream) {
   const int threads = tile_w * tile_h / kPpt;
   const int warps = threads / 32;
-  // 11 fields and the ids per entry of a batch, then the warps' slices
+  // 11 fields per entry of a batch, then the warps' slices
   const size_t smem =
-      (size_t)(12 * kBatch + warps * kGrads * kBatch) * sizeof(float);
+      (size_t)(11 * kBatch + warps * kGrads * kBatch) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         rasterize_bwd_kernel<kPpt>,
@@ -357,7 +349,7 @@ int launch(const void* means2d, const void* conics, const void* colors,
       (const int32_t*)tile_lo, (const int32_t*)tile_hi,
       (const int32_t*)slot_px0, (const int32_t*)slot_py0, tile_w, patch_w,
       max_per_tile, (const float*)c_total, (const float*)final_t,
-      (const float*)g_colors, (const float*)g_t, (float*)d_out);
+      (const float*)g_colors, (const float*)g_t, (float*)d_rows);
   return (int)cudaGetLastError();
 }
 
@@ -369,9 +361,10 @@ extern "C" {
 // means2d f32[n_gauss*2], conics/colors f32[n_gauss*3], opacities f32[n_gauss],
 // gauss_ids i32[n_entries], tile_lo/tile_hi/slot_px0/slot_py0 i32[n_slots],
 // c_total/g_colors f32[n_slots*P*3], final_t/g_t f32[n_slots*P] with
-// P = tile_w*tile_h <= 1024 and a multiple of 32; d_out f32[n_gauss*12],
-// 16-byte aligned and zeroed by the caller. Returns cudaGetLastError() after the launch
-// (0 = success).
+// P = tile_w*tile_h <= 1024 and a multiple of 32; d_rows f32[n_entries*9],
+// which the function zeroes (cudaMemsetAsync on the stream) before it
+// stores each walked entry's row. Returns the memset's error or
+// cudaGetLastError() after the launch (0 = success).
 int gts_rasterize_bwd(const void* means2d, const void* conics,
                       const void* colors, const void* opacities,
                       const void* gauss_ids, int64_t n_entries,
@@ -380,13 +373,18 @@ int gts_rasterize_bwd(const void* means2d, const void* conics,
                       const void* slot_py0, int n_slots, int tile_w,
                       int tile_h, int max_per_tile, const void* c_total,
                       const void* final_t, const void* g_colors,
-                      const void* g_t, void* d_out, void* stream) {
+                      const void* g_t, void* d_rows, void* stream) {
   gts_blend::Shape shape;
   if (tile_w < 1 || tile_h < 1 || tile_w * tile_h > kMaxPixels ||
       !gts_blend::pick_shape(tile_w, tile_h, &shape) || n_slots < 0 ||
-      max_per_tile < 0 || n_gauss < 0 || n_entries < 0 ||
-      (reinterpret_cast<uintptr_t>(d_out) & 15) != 0) {
+      max_per_tile < 0 || n_gauss < 0 || n_entries < 0) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (n_entries > 0) {
+    const cudaError_t err =
+        cudaMemsetAsync(d_rows, 0, (size_t)n_entries * kGrads * sizeof(float),
+                        (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
   }
   if (n_slots == 0) return (int)cudaSuccess;
   auto* fn = shape.ppt == 4 ? launch<4> : shape.ppt == 2 ? launch<2>
@@ -394,7 +392,7 @@ int gts_rasterize_bwd(const void* means2d, const void* conics,
   return fn(means2d, conics, colors, opacities, gauss_ids, n_entries,
             n_gauss, tile_lo, tile_hi, slot_px0, slot_py0, n_slots, tile_w,
             tile_h, shape.patch_w, max_per_tile, c_total, final_t, g_colors,
-            g_t, d_out, (cudaStream_t)stream);
+            g_t, d_rows, (cudaStream_t)stream);
 }
 
 }  // extern "C"

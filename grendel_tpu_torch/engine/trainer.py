@@ -36,12 +36,15 @@ The entry ceiling starts at 2^22 and, after the first step of each entry
 and Gaussian capacity (where the JAX loop compiles a new step), becomes
 ``utils/hbm.py entry_ceiling``: the capacity plus the entries that fit,
 at ``BYTES_PER_ISECT_ENTRY`` each, in 90% of the device's memory above
-the step's peak (``_update_hbm_ceiling``). The peak is the caching
-allocator's ``max_memory_allocated`` over that step, after a reset just
-before it: host-side statistics, so the reading waits for nothing. The
-loop keeps its own running maxima across those resets for its memory
-line (``peak_memory``). On the CPU there is no reading and the ceiling
-stays at 2^22, as the JAX loop's does on the CPU without
+the step's peak (``_update_hbm_ceiling``), and never past
+``hbm.ENTRY_CAP_MAX`` (2^31 - 2^27), where int32 entry offsets would
+overflow; the JAX loop has no such bound, and when the clamp binds the
+port logs it on a line of its own after JAX's ceiling line. The peak is
+the caching allocator's ``max_memory_allocated`` over that step, after a
+reset just before it: host-side statistics, so the reading waits for
+nothing. The loop keeps its own running maxima across those resets for
+its memory line (``peak_memory``). On the CPU there is no reading and
+the ceiling stays at 2^22, as the JAX loop's does on the CPU without
 ``GRENDEL_HBM_GB``; on the card a missing reading raises.
 
 The training cameras go up once to the device; each step indexes them.
@@ -467,7 +470,7 @@ class Trainer:
         mine = None
         if step_bytes and limit:
             mine = entry_ceiling(cap, step_bytes, limit,
-                                 hbm.BYTES_PER_ISECT_ENTRY)
+                                 self._bytes_per_entry())
         elif self.device.type == "cuda":
             raise RuntimeError(f"no memory reading on {self.device}: step "
                                f"bytes {step_bytes}, limit {limit}")
@@ -480,6 +483,14 @@ class Trainer:
         self._log(f"compiled step reserves {step_bytes / 2**30:.2f}GB of "
                   f"{limit / 2**30:.0f}GB HBM; isect entry ceiling -> "
                   f"{ceiling}")
+        if mine == hbm.ENTRY_CAP_MAX:
+            self._log(f"isect entry ceiling clamped to {mine}: entry "
+                      f"offsets are int32")
+
+    def _bytes_per_entry(self) -> float:
+        """Device bytes a step takes per entry of capacity, for the lists
+        this loop's step builds: the camera-blocked ones."""
+        return hbm.BYTES_PER_ISECT_ENTRY
 
     def _agreed_ceiling(self, mine: Optional[int]) -> Optional[int]:
         """The ceiling every rank takes; on one device its own."""
@@ -847,9 +858,9 @@ class Trainer:
         ratio = saved.get("n_devices", self.world) / self.world
         self._restore_tuner(saved, ratio)
         if saved.get("isect_cap_current"):
-            self._isect_cap_current = mantissa_round_cap(
+            self._isect_cap_current = min(mantissa_round_cap(
                 saved["isect_cap_current"] * ratio, floor=ISECT_CAP_FLOOR,
-                align=128 * max(1, self.cfg.dist.bsz))
+                align=128 * max(1, self.cfg.dist.bsz)), hbm.ENTRY_CAP_MAX)
         self._densify_growth_ratio = float(
             saved.get("densify_growth_ratio", 2.0))
         self._max_alive = max(self._max_alive,

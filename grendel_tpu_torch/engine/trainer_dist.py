@@ -40,8 +40,10 @@ window roll). The entry ceiling is the base loop's
 (``Trainer._update_hbm_ceiling``), read on the first step of each entry
 and Gaussian capacity from the rank's own step and taken as the smallest
 over ranks: the JAX loop's D-device ``Trainer`` reads one compiled step
-for all its devices. Evals render without the post-cull budget, where
-the JAX loop's keep it (see ``_trainer_for_eval``).
+for all its devices. At D > 1 a rank's step builds the flat row-span
+lists, and the ceiling counts their own bytes per entry
+(``hbm.BYTES_PER_FLAT_ENTRY``). Evals render without the post-cull
+budget, where the JAX loop's keep it (see ``_trainer_for_eval``).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from ..parallel.division import (DivisionHistory, divide_rows,
 from ..parallel.redistribute import redistribute
 from ..parallel.sharded import (DistributedTrainer, ParallelConfig,
                                 shard_state)
+from ..utils import hbm
 from .checkpoint import load_checkpoint_sharded
 from .train import TrainState, train_state_init
 from .trainer import Trainer, device_gt_bank
@@ -523,6 +526,14 @@ class MultiRankTrainer(Trainer):
         if self.sharded:
             n, = comm.all_reduce_sum([n])
         return int(n)
+
+    def _bytes_per_entry(self) -> float:
+        """A rank's bytes per entry of capacity: the camera-blocked lists'
+        at world size 1 (the replicated payload, parallel/sharded.py
+        render_owned_rows), the flat row-span lists' at D > 1."""
+        if self.world == 1:
+            return hbm.BYTES_PER_ISECT_ENTRY
+        return hbm.BYTES_PER_FLAT_ENTRY
 
     def _agreed_ceiling(self, mine: Optional[int]) -> Optional[int]:
         """The smallest ceiling over ranks (None where no rank read one):

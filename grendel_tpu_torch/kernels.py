@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scan", "rasterize_fwd", "rasterize_bwd", "dma_bench")
+SOURCES = ("scan", "rasterize_fwd", "rasterize_bwd", "segment_sum",
+           "dma_bench")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -64,7 +65,14 @@ SIGNATURES = {
             _ptr, _ptr, _ptr, _ptr,          # tile_lo tile_hi px0 py0
             _c_int, _c_int, _c_int, _c_int,  # n_slots tile_w tile_h mpt
             _ptr, _ptr, _ptr, _ptr,          # c_total final_t g_colors g_t
-            _ptr, _ptr,                      # d_out stream
+            _ptr, _ptr,                      # d_rows stream
+        ]),
+    },
+    "segment_sum": {
+        "gts_segment_sum_rows": (_c_int, [
+            _ptr, _ptr, _ptr,                # rows sorted_ids perm
+            _c_i64, ctypes.c_int32,          # n_entries n_seg
+            _ptr, _ptr,                      # out stream
         ]),
     },
     "dma_bench": {

@@ -17,7 +17,12 @@ on the same projected splats. Entry buffers have a fixed ``capacity``:
 
 The scatter-delta + scan expansion is the JAX package's structure, kept so
 the two agree bit for bit; sorts and searches are PyTorch library calls,
-as they were XLA's in the JAX package.
+as they were XLA's in the JAX package. Every entry outside the spans (the
+tail past the last span, where the corner cull's drops and the unused
+capacity sort) carries the sentinel id, the universe size, in every
+layout: the backward's segment sum (kernel K2s) then drops them by id.
+The JAX package's flat lists leave Gaussian ids in that tail; the entries
+inside the spans are the same.
 
 A ``capacity`` of 0 sizes the entry list to the entries there are (per
 camera for the blocked lists), which costs one read of the count on the
@@ -36,7 +41,8 @@ I32 = torch.int32
 
 
 class TileIntersections(NamedTuple):
-    gauss_ids: torch.Tensor     # (capacity,) int32 Gaussian index per entry
+    gauss_ids: torch.Tensor     # (capacity,) int32 Gaussian index per
+                                # entry; sentinel = universe size
     tile_offsets: torch.Tensor  # (num_tiles + 1,) int32 entry span of tile t
     num_isects: torch.Tensor    # () int32 true total (may exceed capacity)
     num_kept: torch.Tensor      # () int32 entries that survived the corner
@@ -211,6 +217,13 @@ def _exact(capacity: int, total: torch.Tensor) -> int:
     return capacity if capacity > 0 else max(int(total), 1)
 
 
+def _sentinel_tail(ids, sorted_keys, n_keys: int, m: int):
+    """``ids`` (a tensor of its own) with the sentinel ``m``, in place, on
+    every entry whose sorted key is past the last slot (``n_keys``): the
+    tail that no span reaches."""
+    return ids.masked_fill_(sorted_keys >= n_keys, m)
+
+
 def _searchsorted(sorted_keys, n: int):
     return torch.searchsorted(sorted_keys, _arange(n, sorted_keys.device),
                               side="left", out_int32=True)
@@ -254,7 +267,8 @@ def isect_tiles(means2d, radii, depths, tile_w: int, tile_h: int,
     tile_sorted, perm = torch.sort(tile, stable=True)
     tile_offsets = _searchsorted(tile_sorted, num_tiles + 1)
     return TileIntersections(
-        gauss_ids=gid[perm],
+        gauss_ids=_sentinel_tail(gid[perm], tile_sorted, num_tiles,
+                                 depths.shape[0]),
         tile_offsets=tile_offsets,
         num_isects=total,
         num_kept=tile_offsets[num_tiles],
@@ -314,7 +328,8 @@ def isect_tile_rows(means2d, radii, depths, cam_ids, row_lo, row_hi,
     slot_sorted, perm = torch.sort(slot, stable=True)
     tile_offsets = _searchsorted(slot_sorted, num_slots + 1)
     return TileIntersections(
-        gauss_ids=gid[perm],
+        gauss_ids=_sentinel_tail(gid[perm], slot_sorted, num_slots,
+                                 depths.shape[0]),
         tile_offsets=tile_offsets,
         num_isects=total,
         num_kept=tile_offsets[num_slots],

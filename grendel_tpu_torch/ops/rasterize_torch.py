@@ -9,7 +9,10 @@ Counterpart of grendel_tpu/ops/rasterize_jax.py, with the same contract:
     (``tile_lo``/``tile_hi``, (T,) each). Entries past ``max_per_tile`` in
     a span are dropped, and ids outside [0, M) are the sentinel.
   * :func:`rasterize_slots_bwd` is its vector-Jacobian product, written
-    out (no autograd): the plain version of kernel K2.
+    out (no autograd): :func:`rasterize_slots_bwd_rows`, the plain version
+    of kernel K2, gives each entry's row of 9 gradients, and
+    :func:`segment_sum_rows`, the plain version of kernel K2s, sums them
+    per Gaussian in entry order.
   * :func:`rasterize_tiles` renders one camera's full tile grid to
     (3, H, W).
 
@@ -113,6 +116,20 @@ def rasterize_slots(
     return color, t
 
 
+def segment_sum_rows(rows: torch.Tensor, ids: torch.Tensor,
+                     m: int) -> torch.Tensor:
+    """(M, C): row g is the sum of the rows of ``rows`` (E, C) whose ``ids``
+    (E,) equal g; ids outside [0, M) (the sentinel) are dropped. The plain
+    version of kernel K2s (csrc/segment_sum.cu). On the CPU ``index_add_``
+    adds the rows one after another in entry order into a zero row, the
+    order in which K2s sums them, so the two agree bit for bit."""
+    ids = ids.long()
+    seg = torch.where((ids >= 0) & (ids < m), ids, torch.full_like(ids, m))
+    out = rows.new_zeros(m + 1, rows.shape[1])
+    out.index_add_(0, seg, rows)
+    return out[:m]
+
+
 def rasterize_slots_bwd(
     means2d, conics, colors, opacities, gauss_ids, tile_offsets=None,
     slot_px0=None, slot_py0=None, tile_w: int = 16, tile_h: int = 16,
@@ -124,8 +141,29 @@ def rasterize_slots_bwd(
     ``c_total`` (T, P, 3) and ``final_t`` (T, P) are the forward's outputs
     (colors before any background); ``g`` (T, P, 3) and ``g_t`` (T, P) the
     cotangents of those outputs. Returns (d_means2d (M, 2), d_conics (M, 3),
-    d_colors (M, 3), d_opacities (M,)), summed over entries per Gaussian;
-    sentinel entries contribute nothing.
+    d_colors (M, 3), d_opacities (M,)), summed over entries per Gaussian
+    (:func:`segment_sum_rows` of :func:`rasterize_slots_bwd_rows`); sentinel
+    entries contribute nothing. It uses no autograd."""
+    rows = rasterize_slots_bwd_rows(
+        means2d, conics, colors, opacities, gauss_ids, tile_offsets,
+        slot_px0, slot_py0, tile_w, tile_h, max_per_tile, chunk,
+        tile_lo=tile_lo, tile_hi=tile_hi, c_total=c_total, final_t=final_t,
+        g=g, g_t=g_t)
+    d_all = segment_sum_rows(rows, gauss_ids, means2d.shape[0])
+    return d_all[:, 0:2], d_all[:, 2:5], d_all[:, 5:8], d_all[:, 8]
+
+
+def rasterize_slots_bwd_rows(
+    means2d, conics, colors, opacities, gauss_ids, tile_offsets=None,
+    slot_px0=None, slot_py0=None, tile_w: int = 16, tile_h: int = 16,
+    max_per_tile: int = 1024, chunk: int = 64, *, tile_lo=None,
+    tile_hi=None, c_total, final_t, g, g_t,
+):
+    """Each entry's gradients, (E, 9) for the E entries of ``gauss_ids``:
+    d_means2d (2), d_conics (3), d_colors (3), d_opacity (1), summed over
+    the pixels of the entry's slot. Rows of entries no span reaches, past
+    ``max_per_tile``, or with the sentinel id are zero. The arguments are
+    :func:`rasterize_slots_bwd`'s; spans must not overlap.
 
     The walk repeats the forward's f32 operations entry by entry, so each
     pixel stops where the forward stopped, and carries the prefix
@@ -136,7 +174,8 @@ def rasterize_slots_bwd(
 
     zero for entries the forward did not blend and where alpha was clamped
     (o exp(power) >= 0.99). This is the plain version of kernel K2
-    (csrc/rasterize_bwd.cu); it uses no autograd.
+    (csrc/rasterize_bwd.cu), and the counterpart of the reference's
+    per-entry ``d_entries`` (rasterize_pallas.py:629).
     """
     lo, hi = tile_spans(tile_offsets, tile_lo, tile_hi)
     lo, hi = lo.long(), hi.long()
@@ -154,8 +193,8 @@ def rasterize_slots_bwd(
     s = torch.zeros(t_slots, p, dtype=torch.float32, device=dev)
     done = torch.zeros(t_slots, p, dtype=torch.bool, device=dev)
     zero = torch.zeros_like(t)
-    # row m absorbs invalid entries
-    d_all = torch.zeros(m + 1, 9, dtype=torch.float32, device=dev)
+    n_entries = gauss_ids.shape[0]
+    rows = torch.zeros(n_entries, 9, dtype=torch.float32, device=dev)
     n_steps = int((hi_eff - lo).clamp(min=0).max()) if t_slots else 0
     steps = torch.arange(chunk, device=dev)
     for c0 in range(0, n_steps, chunk):
@@ -201,12 +240,12 @@ def rasterize_slots_bwd(
             (w * g_b[:, None, :]).sum(-1),
             (da * g_exp).sum(-1),
         ], -1)                                                # (T, K, 9)
-        seg = torch.where(valid, ids, torch.full_like(ids, m))
-        d_all.index_add_(0, seg.reshape(-1), per_entry.reshape(-1, 9))
+        pos = lo[:, None] + c0 + steps                        # (T, K)
+        keep = valid & (pos < n_entries)
+        rows[pos[keep]] = per_entry[keep]
         if bool(done.all()):
             break
-    d_all = d_all[:m]
-    return d_all[:, 0:2], d_all[:, 2:5], d_all[:, 5:8], d_all[:, 8]
+    return rows
 
 
 def slots_to_images(colors: torch.Tensor, t_final: torch.Tensor, n_cams: int,

@@ -196,20 +196,26 @@ def pack_for_exchange(means2d, conics, rgbs, opacs, radii, depths,
     n_demand = counts.max()
 
     # each copy's row into its slot; the dropped ones land in a spare row.
-    # index_select and index_copy: their backwards are an atomic add with
-    # at most D copies of a row and a gather, where an indexing gather's
-    # backward would sort its indices and walk each run of equal ones
+    # The differentiable payload's rows are repeated D times (copy k*D + j)
+    # and the copies gathered by the permutation: the backward sums a
+    # row's D copies over the repeat's axis, in a fixed order, and its
+    # gather's adds land one on each row. A gather of row perm // D, as
+    # meta takes (it has no gradient), would add up to D copies into a row
+    # with atomics, in an order that changes from run to run. An indexing
+    # gather's backward would sort its indices and walk each run of equal
+    # ones, hence index_select and index_copy.
     payload, meta = payload_and_meta(means2d, conics, rgbs, opacs, radii,
                                      depths)
-    src = torch.div(perm, d_count, rounding_mode="floor")
     slot = slot.long()
 
-    def scatter(x):
+    def scatter(x, index):
         rows = x.new_zeros(d_count * cap + 1, x.shape[1])
-        return rows.index_copy(0, slot, x.index_select(0, src))[:-1]
+        return rows.index_copy(0, slot, x.index_select(0, index))[:-1]
 
-    return (scatter(payload).reshape(d_count, cap, PAYLOAD_F),
-            scatter(meta).reshape(d_count, cap, META_F), n_overflow,
+    copies = payload[:, None, :].expand(-1, d_count, -1).reshape(-1, PAYLOAD_F)
+    src = torch.div(perm, d_count, rounding_mode="floor")
+    return (scatter(copies, perm).reshape(d_count, cap, PAYLOAD_F),
+            scatter(meta, src).reshape(d_count, cap, META_F), n_overflow,
             n_demand)
 
 

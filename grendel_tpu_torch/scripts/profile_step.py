@@ -10,7 +10,7 @@ step, on random Gaussians (testing.random_gaussians) and random ground
 truth, under the JAX tool's stage keys: ``full_step`` (engine/train.py
 ``train_step``), ``project_fwd``, ``isect`` (the tile lists, kernel K3 on
 the card), ``raster_fwd`` (the blend, K1), ``raster_fwd_bwd`` (K1 and its
-backward K2), ``loss_fwd_bwd``, ``adam`` and ``render_batch_fwd``. The
+backward, K2 and K2s), ``loss_fwd_bwd``, ``adam`` and ``render_batch_fwd``. The
 per-camera stages (isect, raster_*) run on camera 0's lists and count
 ``bsz`` times. The entry capacity is sized as the trainer sizes it (1.15x
 camera 0's count, mantissa-rounded), and the blend budget from the
@@ -63,7 +63,8 @@ def main(argv=None) -> dict:
     from ..models.optimizer import adam_step, scaled_lrs
     from ..ops.isect import compact_entries_flat, isect_tiles
     from ..ops.projection import ProjectedSplats, project_gaussians_batched
-    from ..ops.rasterize_cuda import rasterize_slots_fwd, rasterize_slots_vjp
+    from ..ops.rasterize_cuda import (rasterize_slots_fwd, rasterize_slots_vjp,
+                                      segment_sum)
     from ..ops.scan_cuda import cumsum_i32_multi
     from ..testing import make_test_camera, params_fields, random_gaussians
     from ..utils.hbm import mantissa_round_cap
@@ -72,7 +73,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(a.device)
     on_card = dev.type == "cuda"
     kernels_of = {"K1": rasterize_slots_fwd, "K2": rasterize_slots_vjp,
-                  "K3": cumsum_i32_multi}
+                  "K2s": segment_sum, "K3": cumsum_i32_multi}
     h, w, n_live, bsz, sh_degree = a.height, a.width, a.n, a.bsz, a.sh_degree
     capacity = 1 << int(np.ceil(np.log2(max(n_live, 2) * 1.3)))
     g = random_gaussians(a.seed, n_live, extent=3.0, sh_degree=sh_degree,

@@ -1,4 +1,5 @@
-"""Time K1, K2, K3 and K5 of whichever tree of the port is on the path.
+"""Time K1, K2, K3 and K5, and the garden's training step, of whichever
+tree of the port is on the path.
 
     python3 chip_smoke.py --save-k2 output
     PYTHONPATH=<tree> python3 grendel_tpu_torch/scripts/time_kernels.py \\
@@ -13,15 +14,21 @@ the public wrappers ``rasterize_slots_fwd``, ``rasterize_slots_vjp``,
 ``grendel_tpu_torch`` the path gives it, so that two trees of the port (a
 parent and a change) can be timed on the same inputs on one card, one
 after the other. It times K1 on each saved call's forward inputs (the
-file's first 12 fields) and K2 on the whole call, with checksums of
-K1's outputs and of the gradients; K3 on random channels at the
+file's first 12 fields) and the backward on the whole call (K2; in a
+tree that has them, with the sort of the entry ids and K2s, the
+per-Gaussian sum of K2's rows), with checksums of K1's outputs and of
+the gradients; K3 on random channels at the
 garden's two scan shapes (``--k3`` C,M pairs) beside one
 ``torch.cumsum`` call; and K5 on the DMA microbenchmark's default inputs
 from its seed (``microbench_dma.make_inputs``, 1,048,576 ids into a
 table of 262,144 rows) at both row widths, no arithmetic. Times are
 medians of CUDA events around single launches with the L2 flushed before
 each, on two clocks: as the card sees the call, which counts any wait for
-the host to reach the launch, and the device's time alone. The timer is
+the host to reach the launch, and the device's time alone. Last, the
+device time of one garden ``train_step`` (``testing.garden_training``,
+bsz 2 at 1296x840): the sum over its kernels under ``torch.profiler``,
+per step over 5 steps after 3 warm-ups, with the launches per step,
+the number that holds to 0.5% between processes. The timer is
 ``kernels.cold_ms`` of the tree this script belongs to, loaded by its
 path (it needs only torch), so that every tree is timed the same way.
 """
@@ -105,7 +112,37 @@ def main(argv=None) -> int:
         print(f"# K5 W={width} rows={ids.shape[0]}: "
               f"{clocks(lambda: scattered_checksum(table, ids, 0), 20)}, "
               f"checksum sum {checksum} [{card}]")
+    ms, launches = step_device_ms()
+    print(f"# garden train_step device time: {ms:.3f} ms per step, "
+          f"{launches:.0f} launches per step (profiler, 5 steps) [{card}]")
     return 0
+
+
+def step_device_ms(steps: int = 5):
+    """Device ms and kernel launches per garden train_step: the sum of the
+    profiler's device time over its kernels, over ``steps`` steps after 3
+    warm-ups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grendel_tpu_torch.testing import garden_training
+
+    tr = garden_training(0, torch.device("cuda"))
+    state = tr.state
+    for _ in range(3):
+        state, _ = tr.step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = tr.step(state)
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+            n += e.count
+    return us / 1e3 / steps, n / steps
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""K1's and K2's wrapper logic that runs without a card: the (M, 12)
-gradient rows K2 writes are sliced back into the four gradients, and off
+"""K1's and K2's wrapper logic that runs without a card: the (M, 9)
+gradient rows K2s writes are sliced back into the four gradients, and off
 the CPU each wrapper refuses a tile its kernel does not take before it
 launches, and passes on every tile its kernel takes: K2 every multiple of
 32 pixels, narrow ones too; K1 every tile of 1 to 1024 pixels."""
@@ -16,9 +16,9 @@ from grendel_tpu_torch.ops.rasterize_cuda import (BWD_ROW, BWD_WARP,
 
 
 def test_kernel_rows_split_into_the_four_gradients():
-    """K2 adds each Gaussian's 9 sums into a 12-float row (two 16-byte
-    atomics and one scalar); the wrapper hands back columns 0-1, 2-4, 5-7
-    and 8 as d_means2d, d_conics, d_colors and d_opacities."""
+    """K2s sums each Gaussian's entry rows into a 9-float row; the wrapper
+    hands back columns 0-1, 2-4, 5-7 and 8 as d_means2d, d_conics,
+    d_colors and d_opacities."""
     rows = torch.arange(5 * BWD_ROW, dtype=torch.float32).reshape(5, BWD_ROW)
     d_m, d_c, d_rgb, d_o = split_grads(rows)
     assert (d_m.shape, d_c.shape, d_rgb.shape, d_o.shape) == (

@@ -8,6 +8,14 @@
     ``device_bytes_limit`` reads ``GRENDEL_HBM_GB`` and gives None on the
     CPU without it; the ranks' minimum (``comm.all_reduce_min``) carries
     a ceiling past float32's exact integers unchanged;
+  * with a device far larger than any card (``GRENDEL_HBM_GB`` 1024), the
+    port's ceiling stops at ``ENTRY_CAP_MAX`` (2^31 - 2^27), where int32
+    entry offsets would overflow, while the JAX loop's, on the same
+    numbers and the same bytes per entry, passes 2^31 (a reference fault
+    the port does not copy); the one-device loop's ceiling, its rounded
+    capacities and a resumed capacity, and the ranks' agreed ceiling, all
+    stay at or below the clamp, and the clamp is logged; the multi-rank
+    loop counts the flat lists' bytes per entry at D > 1;
   * both packages' one-device loops, on a scene whose tile lists pass the
     2^14-entry floor of both tuners, with the same injected step bytes
     (zero headroom: the ceiling is the first capacity): both log the same
@@ -16,6 +24,7 @@
 """
 
 import io
+import json
 import types
 
 import pytest
@@ -27,11 +36,13 @@ from grendel_tpu.testing import SyntheticScene as JScene
 from grendel_tpu_torch import testing
 from grendel_tpu_torch.config import TrainConfig
 from grendel_tpu_torch.engine.trainer import Trainer
+from grendel_tpu_torch.engine.trainer_dist import MultiRankTrainer
 from grendel_tpu_torch.parallel import comm
 from grendel_tpu_torch.utils import hbm
 from tests.test_torch_trainer_dist import jax_config, port_scene
 
 GIB = 1 << 30
+INT32_MAX = (1 << 31) - 1
 CAP = 1 << 20
 CEILING_LINE = "isect entry ceiling -> "
 OVER_LINE = "at the HBM ceiling; dropping farthest entries"
@@ -90,6 +101,95 @@ def test_all_reduce_min_is_exact():
         assert share.tolist() == [0.25, -2.0]
     finally:
         comm.destroy_group()
+
+
+def _ceiling_stub(lines, bsz=2):
+    """What Trainer._update_hbm_ceiling and _round_cap read of a loop."""
+    return types.SimpleNamespace(
+        device=torch.device("cpu"), _log=lines.append, hbm_readings=[],
+        isect_capacity_ceiling=1 << 22,
+        cfg=types.SimpleNamespace(dist=types.SimpleNamespace(bsz=bsz)),
+        _bytes_per_entry=lambda: hbm.BYTES_PER_ISECT_ENTRY,
+        _agreed_ceiling=lambda mine: mine)
+
+
+@pytest.mark.parametrize("bsz", [1, 2, 3])
+def test_ceiling_is_clamped_below_int32(bsz, monkeypatch):
+    monkeypatch.setenv("GRENDEL_HBM_GB", "1024")
+    step_bytes = 6 * GIB
+    limit = hbm.device_bytes_limit("cpu")
+    # the JAX loop's formula on the same numbers passes 2^31
+    monkeypatch.setattr("grendel_tpu.utils.hbm.BYTES_PER_ISECT_ENTRY",
+                        hbm.BYTES_PER_ISECT_ENTRY)
+    jstub = types.SimpleNamespace(_log=lambda line: None,
+                                  isect_capacity_ceiling=1 << 22)
+    JTrainer._update_hbm_ceiling(
+        jstub, types.SimpleNamespace(mem_bytes=step_bytes),
+        types.SimpleNamespace(isect_capacity=CAP))
+    unclamped = int(CAP + (0.9 * limit - step_bytes)
+                    / hbm.BYTES_PER_ISECT_ENTRY)
+    assert jstub.isect_capacity_ceiling == unclamped > INT32_MAX
+    assert hbm.entry_ceiling(CAP, step_bytes, limit,
+                             hbm.BYTES_PER_ISECT_ENTRY) == hbm.ENTRY_CAP_MAX
+    # the one-device loop: its ceiling, every capacity it rounds, logged
+    lines = []
+    stub = _ceiling_stub(lines, bsz)
+    Trainer._update_hbm_ceiling(stub, CAP, step_bytes)
+    assert stub.isect_capacity_ceiling == hbm.ENTRY_CAP_MAX
+    assert stub.hbm_readings == [(CAP, step_bytes, hbm.ENTRY_CAP_MAX)]
+    assert lines == [
+        f"compiled step reserves 6.00GB of 1024GB HBM; {CEILING_LINE}"
+        f"{hbm.ENTRY_CAP_MAX}",
+        f"isect entry ceiling clamped to {hbm.ENTRY_CAP_MAX}: entry "
+        f"offsets are int32"]
+    for target in (0.9 * hbm.ENTRY_CAP_MAX, hbm.ENTRY_CAP_MAX - 1,
+                   hbm.ENTRY_CAP_MAX, 1.35 * hbm.ENTRY_CAP_MAX, 4e9, 1e12):
+        assert Trainer._round_cap(stub, target) <= hbm.ENTRY_CAP_MAX
+    # re-rounding the clamp (a resume) keeps it: it lies on the grid
+    assert hbm.mantissa_round_cap(hbm.ENTRY_CAP_MAX, align=128 * bsz) \
+        <= INT32_MAX
+
+
+def test_resumed_capacity_stays_below_the_clamp(tmp_path):
+    """An elastic resume scales the saved entry capacity by saved D / D and
+    rounds it again; the clamp holds there too."""
+    (tmp_path / "tuner.json").write_text(json.dumps(
+        {"n_devices": 4, "isect_cap_current": hbm.ENTRY_CAP_MAX}))
+    stub = types.SimpleNamespace(
+        world=1, cfg=types.SimpleNamespace(dist=types.SimpleNamespace(bsz=2)),
+        _restore_tuner=lambda saved, ratio: None, _max_alive=0,
+        _log=lambda line: None)
+    Trainer._restore_tuner_state(stub, str(tmp_path))
+    assert stub._isect_cap_current == hbm.ENTRY_CAP_MAX
+
+
+def test_ranks_agreed_ceiling_stays_below_the_clamp(monkeypatch):
+    """Each rank clamps its own reading; the ranks take the smallest."""
+    monkeypatch.setenv("GRENDEL_HBM_GB", "1024")
+    comm.init_group("cpu", rank=0, world_size=1, store=dist.HashStore())
+    try:
+        lines = []
+        stub = _ceiling_stub(lines)
+        stub._agreed_ceiling = types.MethodType(
+            MultiRankTrainer._agreed_ceiling, stub)
+        Trainer._update_hbm_ceiling(stub, CAP, 6 * GIB)
+        assert stub.isect_capacity_ceiling == hbm.ENTRY_CAP_MAX
+        assert MultiRankTrainer._agreed_ceiling(stub, None) is None
+    finally:
+        comm.destroy_group()
+
+
+@pytest.mark.parametrize("world, want", [
+    (1, "BYTES_PER_ISECT_ENTRY"), (2, "BYTES_PER_FLAT_ENTRY"),
+    (4, "BYTES_PER_FLAT_ENTRY")])
+def test_multi_rank_loop_takes_its_lists_bytes_per_entry(world, want):
+    """A rank at D > 1 builds the flat row-span lists and counts their
+    measured bytes per entry; at world size 1 it takes the camera-blocked
+    lists of the one-device loop, and their constant."""
+    assert hbm.BYTES_PER_FLAT_ENTRY != hbm.BYTES_PER_ISECT_ENTRY
+    rank = types.SimpleNamespace(world=world)
+    assert MultiRankTrainer._bytes_per_entry(rank) == getattr(hbm, want)
+    assert Trainer._bytes_per_entry(rank) == hbm.BYTES_PER_ISECT_ENTRY
 
 
 # about 32,000 entries a camera at 256x192 in 16x16 tiles: past the first

@@ -3,10 +3,11 @@ fed the same projected splats (numpy scene, JAX projection).
 
 All outputs are integers and must be identical. Scene depths are distinct
 (continuous random means), since JAX's (camera, depth) sort is not stable.
-Beyond the true entry count the flat list holds the broadcast id of the last
-culled (depth +inf) Gaussian, whose rank among equal depths is sort-order
-dependent, so the flat comparison covers the first ``num_isects`` entries;
-the blocked list writes the sentinel there and is compared whole.
+Past its spans JAX's flat list holds Gaussian ids (the corner cull's drops,
+then the broadcast id of the last culled, depth +inf, Gaussian); the port's
+writes the sentinel there, as both blocked lists do, so the flat
+comparison covers the spans' ``num_kept`` entries and checks the sentinel
+after them; the blocked list is compared whole.
 """
 
 import numpy as np
@@ -77,8 +78,13 @@ def test_isect_tiles_matches_jax(capacity):
     _eq(t.num_kept, j.num_kept, "num_kept")
     assert int(j.num_kept) < min(total, capacity)     # the corner cull dropped
     _eq(t.tile_offsets, j.tile_offsets, "tile_offsets")
-    n = min(total, capacity)
-    _eq(t.gauss_ids[:n], j.gauss_ids[:n], "gauss_ids")
+    # the spans' entries are JAX's; past them (the corner cull's drops,
+    # then the unused capacity) the port writes the sentinel id, where
+    # JAX's tail keeps Gaussian ids
+    kept = int(j.num_kept)
+    _eq(t.gauss_ids[:kept], j.gauss_ids[:kept], "gauss_ids")
+    assert t.gauss_ids.shape == (capacity,)
+    assert bool((t.gauss_ids[kept:] == m2d.shape[0]).all())
     assert t.gauss_ids.dtype == t.tile_offsets.dtype == torch.int32
 
 

@@ -1,8 +1,9 @@
 """Port parity of the flat row-span tile lists (grendel_tpu_torch's
 ops/isect.py isect_tile_rows against grendel_tpu's): on the same entries
 from a mix of cameras (numpy seeds, distinct depths, since jax.lax.sort is
-not stable), the tile offsets, Gaussian ids, num_isects and num_kept are
-identical, for a span inside one camera, one across a camera border, and
+not stable), the tile offsets, num_isects, num_kept and the Gaussian ids
+of the spans are identical (past the spans the port writes the sentinel
+id), for a span inside one camera, one across a camera border, and
 an empty one, with and without the opacity-aware cull, while num_isects
 stays below the capacity."""
 
@@ -61,8 +62,13 @@ def test_isect_tile_rows_matches_jax(span, cull):
     assert int(got.num_kept) == int(want.num_kept)
     np.testing.assert_array_equal(got.tile_offsets.numpy(),
                                   np.asarray(want.tile_offsets))
-    np.testing.assert_array_equal(got.gauss_ids.numpy(),
-                                  np.asarray(want.gauss_ids))
+    # the spans' entries are JAX's; the tail past them carries the
+    # sentinel (the entry count M), where JAX's keeps Gaussian ids
+    kept = int(want.num_kept)
+    np.testing.assert_array_equal(got.gauss_ids[:kept].numpy(),
+                                  np.asarray(want.gauss_ids)[:kept])
+    assert got.gauss_ids.shape == (CAPACITY,)
+    assert bool((got.gauss_ids[kept:] == M).all())
     assert got.tile_offsets.shape == (slots * TX + 1,)
     if cull:    # the corner cull dropped entries
         assert span == "empty" or int(got.num_kept) < n

@@ -35,7 +35,7 @@ import torch
 
 from grendel_tpu.engine.trainer import Trainer as JTrainer
 from grendel_tpu_torch.engine.checkpoint import checkpoint_name
-from grendel_tpu_torch.utils.hbm import BYTES_PER_ISECT_ENTRY, entry_ceiling
+from grendel_tpu_torch.utils.hbm import BYTES_PER_FLAT_ENTRY, entry_ceiling
 from tests.test_torch_hbm import ceiling_scene
 from tests.test_torch_trainer_dist import (D, jax_config, jax_scene,
                                            run_ranks, tap_jax)
@@ -115,9 +115,10 @@ def test_memory_guard_stops_every_rank(scene, tmp_path):
 
 
 def test_entry_ceiling_is_the_ranks_minimum(tmp_path):
-    # rank r's step takes base_r + BYTES_PER_ISECT_ENTRY x its capacity,
-    # so its own ceiling is fixed: (0.9 limit - base_r) / bytes per entry
-    limit, per = 1 << 30, BYTES_PER_ISECT_ENTRY
+    # rank r's step takes base_r + BYTES_PER_FLAT_ENTRY x its capacity
+    # (a rank's flat lists at D = 2, the constant its loop counts), so its
+    # own ceiling is fixed: (0.9 limit - base_r) / bytes per entry
+    limit, per = 1 << 30, BYTES_PER_FLAT_ENTRY
     own = {0: 18_000, 1: 40_000}
     base = {r: 0.9 * limit - c * per for r, c in own.items()}
     config = dict(SHORT, dist=dict(bsz=2), pipeline=dict(
