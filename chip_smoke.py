@@ -26,7 +26,11 @@ Phases, each of which fails the run:
      tiles) and on a small scene at 32x8, 64x4 and 128x2 tiles, where
      both walk 2 or 1 pixels a thread on other warp patches; K1 alone on
      12x10 tiles (120 pixels, not a multiple of 32, which K2 refuses),
-     where it walks one pixel a thread without the patch reject;
+     where it walks one pixel a thread without the patch reject; K2s
+     alone on a stress set (k2s_stress: a segment of 150,001 entries,
+     segments across every block and ring-stage edge, a heavy-tailed mix
+     like the 4K step's, mostly empty Gaussians, stray and sentinel ids,
+     M = 0, E = 0), bit-equal to its plain version and launched twice;
   5. the render path at full width: the garden-scale model (200,000 live
      Gaussians in a capacity of 262,144, SH 3) saved to PLY, loaded on the
      card and rendered by render_batch for 2 cameras at 1296x840 with
@@ -132,8 +136,9 @@ Phases, each of which fails the run:
      row-span lists (a simulated D=2 step at 2^27 and 2^28 entries a
      rank; within 5% of BYTES_PER_FLAT_ENTRY), the int32 clamp of the
      ceiling beside it, the memory guard, iterations/s, the
-     device time and launches per step (profiler, 3 steps), K1-K3 on the
-     4K step against their bounds, the set-up (raytrace) and phase
+     device time and launches per step (profiler, 3 steps), K1-K3 and
+     K2s on the 4K step against their bounds (K2s first held bit for bit
+     to its plain version on the step's rows), the set-up (raytrace) and phase
      seconds. Then the same scene through ``MultiRankTrainer`` on a
      one-rank NCCL group for 10 iterations: K1-K3 in every step, its own
      ceiling above 2^22, its entries a rank beside it, no step over
@@ -169,11 +174,13 @@ Phases, each of which fails the run:
      the card could take; each kernel also on the device's clock alone
      (``device_ms``: the host's time to reach the launch hidden); K2 alone
      and K2s on its rows, with the sort between them and the whole VJP
-     printed; K1, K2 and K2s also on the loop step's inputs, K3 per shape
-     with its wrapper's host time per call.
+     printed; K1, K2 and K2s also on the loop step's inputs (and in phase
+     13 on the 4K step's), K2s each time first held bit for bit to its
+     plain version, K3 per shape with its wrapper's host time per call.
 
 ``--save-k2 DIR`` also saves K2's inputs on the garden and on the loop's
-last step for grendel_tpu_torch/scripts/time_kernels.py. Prints one
+last step, and K2s's on the 4K step, for
+grendel_tpu_torch/scripts/time_kernels.py. Prints one
 ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is not beside this file.
@@ -469,10 +476,8 @@ def blend_check(what, blend_in, blend_kw, g, g_t):
     error."""
     from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_vjp,
                                                       rasterize_slots_vjp_rows,
-                                                      segment_sum,
                                                       split_grads)
-    from grendel_tpu_torch.ops.rasterize_torch import (rasterize_slots_bwd,
-                                                       segment_sum_rows)
+    from grendel_tpu_torch.ops.rasterize_torch import rasterize_slots_bwd
 
     col_k, t_k, k1_err = k1_check(what, blend_in, blend_kw)
     bwd_kw = dict(blend_kw, c_total=col_k, final_t=t_k, g=g, g_t=g_t)
@@ -481,15 +486,13 @@ def blend_check(what, blend_in, blend_kw, g, g_t):
     d_p = rasterize_slots_bwd(*blend_in, **bwd_kw)
     ids, m = blend_in[4], blend_in[0].shape[0]
     rows = rasterize_slots_vjp_rows(*blend_in, **bwd_kw)
-    d_rows = segment_sum(rows, m, torch.sort(ids.to(torch.int32).contiguous(),
-                                             stable=True))
-    torch.cuda.synchronize()
+    d_rows = k2s_check(what, rows, ids.to(torch.int32).contiguous(), m)
     names = ("d_means2d", "d_conics", "d_colors", "d_opacities")
     require(all(bool(torch.isfinite(x).all()) for x in d_k),
             f"K2 output not finite ({what})")
     require(all(torch.equal(a, b) for a, b in zip(d_k, d_again))
-            and all(torch.equal(a, b) for a, b in zip(d_k,
-                                                      split_grads(d_rows))),
+            and all(torch.equal(a.cpu(), b)
+                    for a, b in zip(d_k, split_grads(d_rows))),
             f"K2 and K2s launched again differ from their first launch "
             f"({what})")
     k2_rel = {n: rel_err(a, b) for n, a, b in zip(names, d_k, d_p)}
@@ -500,15 +503,99 @@ def blend_check(what, blend_in, blend_kw, g, g_t):
           f"bit-equal")
     require(max(k2_rel.values()) <= K2_REL_TOL,
             f"K2 differs from its plain version ({what}): {k2_rel}")
-    plain = segment_sum_rows(rows.cpu(), ids.cpu(), m)
-    k2s_err = float((d_rows.cpu() - plain).abs().max()) if m else 0.0
     print(f"# K2s segment sum ({what}): {ids.shape[0]} entry rows into {m} "
           f"Gaussians, bit-equal to its plain version (index_add_ on the "
-          f"CPU in entry order): {torch.equal(d_rows.cpu(), plain)}")
-    require(torch.equal(d_rows.cpu(), plain),
-            f"K2s differs from its plain version ({what}): {k2s_err}")
-    K2S_ERRS.append(k2s_err)
+          f"CPU in entry order) and launched twice")
     return col_k, t_k, bwd_kw, k1_err, k2_err
+
+
+def k2s_check(what, rows, ids, m):
+    """K2s on ``rows`` (E, 9) and the stable sort of ``ids`` (E,) int32,
+    m Gaussians: launched twice, bit-equal to itself and to its plain
+    version (``segment_sum_rows`` on the CPU, index_add_ in entry order);
+    its max abs error (0) goes to ``K2S_ERRS``. Returns its output, on the
+    CPU."""
+    from grendel_tpu_torch.ops.rasterize_cuda import segment_sum
+    from grendel_tpu_torch.ops.rasterize_torch import segment_sum_rows
+
+    order = torch.sort(ids, stable=True)
+    # each launch's output most likely gets the block of the NaN tensor
+    # freed just before it (the caching allocator reuses a freed block of
+    # the size), so a row the kernel left unwritten shows
+    torch.full((m, 9), float("nan"), device=rows.device)
+    got = segment_sum(rows, m, order)
+    torch.full((m, 9), float("nan"), device=rows.device)
+    again = segment_sum(rows, m, order)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    plain = segment_sum_rows(rows.cpu(), ids.cpu(), m)
+    err = float((got - plain).abs().max()) if got.numel() else 0.0
+    require(torch.equal(again.cpu(), got),
+            f"K2s launched again differs from its first launch ({what})")
+    require(torch.equal(got, plain),
+            f"K2s differs from its plain version ({what}): {err}")
+    K2S_ERRS.append(err)
+    return got
+
+
+def k2s_stress(dev, seed=0):
+    """K2s on synthetic segment layouts, each launched twice and held bit
+    for bit to its plain version (``k2s_check``): one Gaussian of 150,001
+    entries (longer than any stage of the kernel's ring); segment lengths
+    0-600 that cross every warp, block (256 Gaussians) and ring-stage
+    boundary, both where the kernel stages 512 entries (many entries a
+    tile) and 256 (the same segments spread over 600,000 Gaussians); a
+    heavy-tailed mix of lengths like the 4K step's (up to 1,248, many
+    empty, 2.3M sentinel entries); 1,000,000 Gaussians of which 3,000 have
+    entries; stray ids below 0 and at or above M; only sentinels; an entry
+    count that is no multiple of any stage; M = 0; E = 0. The entries
+    stand in a random order, and every case's rows span six decades.
+    Returns the number of cases."""
+    rng = np.random.default_rng(seed)
+
+    def lengths_ids(lengths):
+        return np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
+
+    heavy = np.minimum((rng.pareto(1.2, 600_000) * 2.0).astype(np.int64),
+                       1248)
+    heavy[rng.random(600_000) < 0.3] = 0
+    cases = {
+        "one Gaussian of 150,001 entries": (np.concatenate([
+            np.full(150_001, 1234, np.int32),
+            rng.integers(0, 2000, 20_000, dtype=np.int32)]), 2000),
+        "segments of 0-600 entries across every boundary": (
+            lengths_ids((np.arange(3000) * 37) % 601), 3000),
+        "the same on every 200th of 600,000 Gaussians": (
+            200 * lengths_ids((np.arange(3000) * 37) % 601), 600_000),
+        "a heavy-tailed mix (the 4K step's shape)": (np.concatenate([
+            lengths_ids(heavy),
+            np.full(2_300_000, 600_000, np.int32)]), 600_000),
+        "1,000,000 Gaussians, 3,000 with entries": (
+            rng.choice(1_000_000, 3000, replace=False).astype(np.int32)
+            .repeat(rng.integers(1, 20, 3000)), 1_000_000),
+        "stray ids below 0 and at or above M": (
+            rng.integers(-50, 5050, 200_000, dtype=np.int32), 5000),
+        "only sentinels": (np.concatenate([
+            np.full(100_000, 4096, np.int32),
+            rng.integers(4097, 9999, 1000, dtype=np.int32)]), 4096),
+        "256 x 1,000 + 37 entries": (
+            rng.integers(0, 10_007, 256_037, dtype=np.int32), 10_007),
+        "M = 0": (rng.integers(-5, 5, 1000, dtype=np.int32), 0),
+        "E = 0": (np.zeros(0, np.int32), 1000),
+    }
+    for what, (ids, m) in cases.items():
+        ids = rng.permutation(ids)
+        rows = (rng.standard_normal((ids.shape[0], 9))
+                * 10.0 ** rng.integers(-3, 3, (ids.shape[0], 1))
+                ).astype(np.float32)
+        k2s_check(what, torch.from_numpy(rows).to(dev),
+                  torch.from_numpy(ids).to(dev), m)
+        seg = ids[(ids >= 0) & (ids < m)]
+        longest = int(np.bincount(seg).max()) if seg.size else 0
+        print(f"# K2s stress ({what}): {ids.shape[0]} entries into {m} "
+              f"Gaussians, the longest segment {longest}: bit-equal to its "
+              f"plain version, and launched twice")
+    return len(cases)
 
 
 def state_leaves(x, name="state"):
@@ -1641,7 +1728,8 @@ def tools_path(dev, tag, kernels_of, ref, model_path, step_dev_ms):
 
 def fourk_path(dev, tag, kernels_of, timer, model_path, size=FOURK_SIZE,
                points=FOURK_POINTS, cams=FOURK_CAMS, llffhold=FOURK_HOLD,
-               iterations=FOURK_ITERS, dist_iters=FOURK_DIST_ITERS):
+               iterations=FOURK_ITERS, dist_iters=FOURK_DIST_ITERS,
+               save_k2=None):
     """Phase 13: examples/structured_4k.sh's configuration through the
     port's training CLI (``scripts/train.py main``) as a user runs it, its
     views cut to ``cams``: K1-K3 in every step and held against their
@@ -1650,8 +1738,9 @@ def fourk_path(dev, tag, kernels_of, timer, model_path, size=FOURK_SIZE,
     rising, the entry ceiling read from the card above 2^22 and no step
     over capacity at it; then the memory, time and kernel numbers of the
     run, the bytes a step takes per entry of capacity, and the same scene
-    through ``MultiRankTrainer`` (``fourk_dist``). Returns the record and
-    each kernel's max abs error."""
+    through ``MultiRankTrainer`` (``fourk_dist``). With ``save_k2`` (a
+    directory), the last step's K2s inputs are saved there as k2s_4k.pt.
+    Returns the record and each kernel's max abs error."""
     from grendel_tpu_torch.engine import trainer_dist
     from grendel_tpu_torch.engine.trainer import ISECT_CAP_CEILING
     from grendel_tpu_torch.scripts import train
@@ -1793,8 +1882,9 @@ def fourk_path(dev, tag, kernels_of, timer, model_path, size=FOURK_SIZE,
           f"{rec['launches']}, {sum(r[1] for r in rows):.0f} in all {tag}")
     rec["bytes_per_entry"] = entry_bytes(tr, tag)
     rec["bytes_per_entry"]["flat"] = flat_entry_bytes(tr, tag)
-    rec["kernels"] = step_kernel_times(timer, tag, k2_in, "the 4K step",
-                                       chunk=16)
+    rec["kernels"] = step_kernel_times(
+        timer, tag, k2_in, "the 4K step", chunk=16,
+        save=save_k2 and os.path.join(save_k2, "k2s_4k.pt"))
     for xs in k3_in:
         c, m_len = len(xs), xs[0].shape[0]
         k3_ms = timer.ms(lambda: kernels_of["K3"](xs), 20)
@@ -2420,11 +2510,12 @@ def memory_runs(dev, kernels_of, views, size, iterations, model_path, tag):
     return out
 
 
-def step_kernel_times(timer, tag, k2_in, what, chunk=64):
+def step_kernel_times(timer, tag, k2_in, what, chunk=64, save=None):
     """K1, K2 and K2s timed on the inputs one training step (``what``)
     gave K2, beside the least time the card could take for them
-    (``walked_pairs`` in steps of ``chunk`` entries). Returns each one's
-    times and bound."""
+    (``walked_pairs`` in steps of ``chunk`` entries); with ``save``, K2s's
+    inputs (the entry ids, K2's rows, M) saved to that path for
+    scripts/time_kernels.py. Returns each one's times and bound."""
     from grendel_tpu_torch.ops.rasterize_cuda import (rasterize_slots_fwd,
                                                       rasterize_slots_vjp_rows)
 
@@ -2457,24 +2548,32 @@ def step_kernel_times(timer, tag, k2_in, what, chunk=64):
               f"splats): {work}; {r['ms']:.4f} ms (device alone "
               f"{r['device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) {tag}")
-    out["K2s"] = k2s_times(timer, tag, rasterize_slots_vjp_rows(
-        *blend_in, **bwd_kw), ids, m2d.shape[0], what)
+    rows = rasterize_slots_vjp_rows(*blend_in, **bwd_kw)
+    out["K2s"] = k2s_times(timer, tag, rows, ids, m2d.shape[0], what)
+    if save:
+        torch.save((ids.to(torch.int32), rows, m2d.shape[0]), save)
     return out
 
 
 def k2s_times(timer, tag, rows, ids, m, what):
     """K2s on K2's ``rows`` of one call (``ids`` its entries' Gaussians, m
-    of them): its time with the ids already sorted (the VJP sorts them
-    before K2 runs) beside the sort's, its plain version's on the card, the
-    library's (one ``index_add_``, which adds with atomics in no fixed
-    order) and its bound: what the function must move, each entry's id read
-    once, the rows of the entries it sums (ids in [0, m): the list
-    builders give every entry outside the spans the sentinel) read once,
-    the m rows written. Returns the kernels line's fields."""
+    of them), first held bit for bit to its plain version and to itself
+    launched again (``k2s_check``): its time with the ids already sorted
+    (the VJP sorts them before K2 runs) beside the sort's, its plain
+    version's on the card, the library's (one ``index_add_``, which adds
+    with atomics in no fixed order) and its bound: what the function must
+    move, each entry's id read once, the rows of the entries it sums (ids
+    in [0, m): the list builders give every entry outside the spans the
+    sentinel) read once, the m rows written. Also printed: the entries of
+    the fullest block of 256 Gaussians, which sets the kernel's tail, and
+    the time of one ``index_select`` that gathers the rows K2s sums, in
+    the order it reads them: the scattered gather alone, which sets
+    K2s's pace. Returns the kernels line's fields."""
     from grendel_tpu_torch.ops.rasterize_cuda import segment_sum
     from grendel_tpu_torch.ops.rasterize_torch import segment_sum_rows
 
     ids = ids.to(torch.int32).contiguous()
+    k2s_check(what, rows, ids, m)
     order = torch.sort(ids, stable=True)
     seg = torch.where((ids >= 0) & (ids < m), ids.long(),
                       torch.full_like(ids, m, dtype=torch.long))
@@ -2482,19 +2581,28 @@ def k2s_times(timer, tag, rows, ids, m, what):
     k2s = lambda: segment_sum(rows, m, order)  # noqa: E731
     lengths = torch.bincount(seg, minlength=m + 1)[:m]
     n_summed = int(lengths.sum())
+    fullest = int(torch.bincount(seg[seg < m] // 256).max()) if n_summed else 0
     n_bytes = ids.numel() * 4 + (n_summed + m) * rows.shape[1] * 4
     r = {"ms": timer.ms(k2s, 20), "device_ms": timer.device_ms(k2s, 20),
          "plain_ms": timer.ms(lambda: segment_sum_rows(rows, ids, m), 20),
          "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
          "library_ms": timer.ms(lambda: acc.index_add_(0, seg, rows), 20)}
     sort_ms = timer.ms(lambda: torch.sort(ids, stable=True), 20)
+    n_below = int((ids < 0).sum())      # they sort before every segment
+    summed = order[1][n_below:n_below + n_summed]
+    gather_ms = timer.ms(lambda: rows.index_select(0, summed), 20)
     print(f"# K2s on {what}: {ids.numel()} entry rows, {n_summed} of them "
-          f"summed, into {m} Gaussians (segments of up to {int(lengths.max()) if m else 0} entries, "
-          f"{int((lengths > 0).sum())} non-empty), {n_bytes} bytes; "
+          f"summed, into {m} Gaussians (segments of up to "
+          f"{int(lengths.max()) if m else 0} entries, "
+          f"{int((lengths > 0).sum())} non-empty; the fullest block of 256 "
+          f"Gaussians {fullest} entries), {n_bytes} bytes; bit-equal to its "
+          f"plain version and launched twice; "
           f"{r['ms']:.4f} ms (device alone {r['device_ms']:.4f} ms), the "
-          f"sort before it {sort_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-          f"library (index_add_) {r['library_ms']:.4f} ms, bound "
-          f"{r['bound_ms']:.4f} ms (bytes) {tag}")
+          f"sort before it {sort_ms:.4f} ms, the gather of its rows alone "
+          f"(index_select in its order) {gather_ms:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library (index_add_) "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes) "
+          f"{tag}")
     return r
 
 
@@ -2511,7 +2619,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Chip smoke run of the port.")
     ap.add_argument("--save-k2", metavar="DIR",
                     help="save K2's inputs on the garden (k2_garden.pt) and "
-                    "on the loop's last step (k2_step.pt) in DIR, for "
+                    "on the loop's last step (k2_step.pt), and K2s's on the "
+                    "4K step (k2s_4k.pt, about 315 MB) in DIR, for "
                     "grendel_tpu_torch/scripts/time_kernels.py")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2632,7 +2741,13 @@ def main(argv=None):
     k1_err = max(k1_err, k1_check("a small scene, 12x10 tiles", s_in,
                                   s_kw)[2])
 
-    stamp(t_start, "K1 and K2 checked")
+    # K2s alone on synthetic segment layouts: long, heavy-tailed, empty,
+    # stray and sentinel ids, and the edges of its blocks and ring
+    n_cases = k2s_stress(dev)
+    print(f"# K2s: bit-equal to its plain version, and to itself launched "
+          f"again, in {n_cases} stress cases")
+
+    stamp(t_start, "K1, K2 and K2s checked")
 
     # --- 5. the render path ----------------------------------------------
     bg = torch.tensor([0.0, 0.0, 0.0], device=dev)
@@ -2845,7 +2960,8 @@ def main(argv=None):
     # --- 13. the 4K configuration through the CLI ------------------------
     timer = Timer()
     with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
-        _, fourk_errs = fourk_path(dev, tag, kernels_of, timer, tmp)
+        _, fourk_errs = fourk_path(dev, tag, kernels_of, timer, tmp,
+                                   save_k2=args.save_k2)
     stamp(t_start, "4K configuration checked")
 
     # --- 14. host-resident ground truth ----------------------------------

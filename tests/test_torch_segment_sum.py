@@ -8,7 +8,9 @@ Tolerances:
   * ``segment_sum_rows`` against ``jax.ops.segment_sum``: each column
     within 1e-6 of its largest value (the two add in another order);
     against a serial numpy sum in entry order (``np.add.at``), and through
-    the K2s wrapper on CPU tensors: bit-equal, the order K2s sums in;
+    the K2s wrapper on CPU tensors: bit-equal, the order K2s sums in; on
+    camera-blocked lists and on heavy-tailed segment lengths (a segment of
+    6,000 entries, mostly empty Gaussians, ids beyond both ends);
   * the per-entry rows against the reference's per-entry gradients
     (``d_entries`` of grendel_tpu/ops/rasterize_pallas.py _core_bwd), read
     without editing JAX: every entry is given a Gaussian of its own, so
@@ -68,9 +70,44 @@ def _blocked_rows(seed, n_cams=3, block=4000, m_per_cam=700):
     return rows, ids, m
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_segment_sum_rows_matches_jax_segment_sum(seed):
-    rows, ids, m = _blocked_rows(seed)
+def _heavy_tailed_rows(case, seed=7):
+    """Rows and ids in a random entry order with heavy-tailed segment
+    lengths, as the 4K step gives K2s: ``long_segment``, one Gaussian of
+    6,000 entries among 800; ``mostly_empty``, 50,000 Gaussians of which
+    300 have entries; ``beyond_both_ends``, a fifth of the ids below 0 or
+    at or past M, out to the int32 extremes. Row magnitudes span six
+    decades."""
+    rng = np.random.default_rng(seed)
+    if case == "long_segment":
+        m = 800
+        lengths = np.minimum((rng.pareto(1.2, m) * 2.0).astype(np.int64),
+                             600)
+        lengths[rng.random(m) < 0.3] = 0
+        lengths[517] = 6000
+        ids = np.repeat(np.arange(m, dtype=np.int32), lengths)
+    elif case == "mostly_empty":
+        m = 50_000
+        ids = rng.choice(m, 300, replace=False).astype(np.int32).repeat(
+            rng.integers(1, 40, 300))
+    else:
+        m = 3000
+        ids = rng.integers(0, m, 20_000, dtype=np.int32)
+        stray = rng.random(ids.shape[0]) < 0.2
+        ids[stray] = rng.choice(np.array(
+            [-2**31, -7, -1, m, m + 1, m + 999, 2**31 - 1], np.int32),
+            int(stray.sum()))
+    ids = rng.permutation(ids)
+    rows = (rng.standard_normal((ids.shape[0], 9))
+            * 10.0 ** rng.integers(-3, 3, (ids.shape[0], 1))
+            ).astype(np.float32)
+    return rows, ids, m
+
+
+@pytest.mark.parametrize("case", [0, 1, "long_segment", "mostly_empty",
+                                  "beyond_both_ends"])
+def test_segment_sum_rows_matches_jax_segment_sum(case):
+    rows, ids, m = (_blocked_rows(case) if isinstance(case, int)
+                    else _heavy_tailed_rows(case))
     got = segment_sum_rows(torch.from_numpy(rows), torch.from_numpy(ids),
                            m).numpy()
     want = np.asarray(jax.ops.segment_sum(
