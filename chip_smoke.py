@@ -159,13 +159,42 @@ Phases, each of which fails the run:
      each. Then the dataset through ``MultiRankTrainer`` on a one-rank
      NCCL group, every camera lazy and the decode cache at 3 views, for
      100 iterations: decodes happen, the cache stays within its budget,
-     step-0 L1 within 1e-5 relative of the first run's, PSNR rises;
+     step-0 L1 within 1e-5 relative of the first run's, PSNR rises; the
+     pack's C call timed in the loop on 1, 2, 4 and 8 threads in turn,
+     the synchronizing calls of 3 more steps;
      ``read_png``'s ms a view, and a row's on Paeth-filtered rows. Last,
      the one-device loop on an in-memory scene of 16 and of 1,600 views at
      1296x840 (ground truth from a cheap loader, about 5.2 GB of it) for 10
      iterations at threshold 0: peaks within 64 MiB of each other; and
      1,600 views preloaded: a peak higher by at least the bank; each
      run's entry ceiling printed;
+  15. images without PIL: (a) the resize kernel (csrc/resize.cu, PIL's
+     bilinear resize) bit-equal to its plain version on five shapes (the
+     truck view 1957x1091 -> 1600x891 RGB, an upscale, grey, RGBA, a ratio
+     that is no simple fraction), timed beside its plain version, its
+     bound and F.interpolate (bilinear, antialias); (b) the committed JPEG
+     fixtures of tests/data/jpeg decoded by native/jpeg_decode.c on this
+     host bit-equal to PIL's decodes committed beside them; (c) the truck
+     configuration (examples/train_truck_1k/train_truck_1k.sh): the
+     structured scene's cameras and points written as COLMAP with the 10
+     committed 1957x1091 truck JPEGs as images, each view decoded through
+     the port (JPEG decoder, then the resize kernel by the -r -1 rule to
+     1600x891) to bytes whose sha256 equals the JAX package's decode's,
+     then trained through the CLI with --eval --llffhold 8 --bsz 8
+     --iterations 300 (K1-K3 and K2s every step, held-out PSNR rising, the
+     resize kernel once a view); its load, decode ms a view, iterations/s,
+     device ms a step and peak memory printed, the cuts on a ``#
+     reduced:`` line; (e) a truck view's resize round trip behind 100 ms
+     queued on the default stream, on the stream of its own that
+     ``scene.resize_on`` takes (under half the queue) and on the default
+     stream, then the truck dataset lazily through ``MultiRankTrainer``
+     at threshold 0 (as phase 14 (b), bsz 8, 256 iterations): each lazy
+     decode's resize round trip, the ground truth's host ms and the
+     synchronizing calls a step, the pack by thread count; (d) the C
+     paths beside their plain paths: a Paeth
+     and an Average strip through the C unfilter, bit-equal to the plain
+     ``_unfilter``, and the C ground-truth pack bit-equal to the numpy pack
+     on phase 14's views, each with its host ms;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -186,6 +215,7 @@ grendel_tpu_torch/scripts/time_kernels.py. Prints one
 no CUDA device is available or the package is not beside this file.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -203,6 +233,8 @@ ROOT = Path(__file__).resolve().parent
 # published peaks of one H100 SXM at 700 W (NVIDIA H100 datasheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# int32 multiply-adds: 64 lanes an SM where float32 has 128
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 # K1 work per (entry, pixel) pair: one exp and about 15 f32 operations
 K1_OPS_PER_PAIR = 16
 # K2 rebuilds K1's alpha and T for every pair it walks (the same 16), and
@@ -242,6 +274,30 @@ FOURK_ENTRY_PROBE = 1 << 27
 STORAGE_LAZY_ITERS = 100
 STORAGE_MEM_VIEWS, STORAGE_MEM_SIZE = (16, 1600), (1296, 840)
 STORAGE_MEM_ITERS, STORAGE_MEM_POINTS = 10, 100_000
+# images without PIL (phase 15): the resize kernel's checks ((H, W, C)
+# in, (w, h) out): the truck view to the -r -1 rule's size, an upscale,
+# grey, RGBA and a ratio that is no simple fraction; the JPEG fixtures;
+# the truck configuration (examples/train_truck_1k/train_truck_1k.sh):
+# Tanks&Temples truck's 251 views at 1957x1091 cut to the structured
+# scene's 10 at that size (tests/data/jpeg/truck), 30,000 iterations to 300
+RESIZE_CHECKS = (
+    ("1957x1091 -> 1600x891 RGB", (1091, 1957, 3), (1600, 891)),
+    ("an upscale, 640x416 -> 1957x1091 RGB", (416, 640, 3), (1957, 1091)),
+    ("grey, 1957x1091 -> 1600x891", (1091, 1957, 1), (1600, 891)),
+    ("RGBA, 1957x1091 -> 1600x891", (1091, 1957, 4), (1600, 891)),
+    ("a non-integer ratio, 1957x1091 -> 1237x703 RGB", (1091, 1957, 3),
+     (1237, 703)),
+)
+FIXTURE_DIR = ROOT / "tests" / "data" / "jpeg"
+TRUCK_SIZE, TRUCK_CAMS, TRUCK_HOLD, TRUCK_BSZ = (1957, 1091), 10, 8, 8
+TRUCK_ITERS, TRUCK_POINTS, TRUCK_RESOLUTION = 300, 100_000, -1
+# phase 15 (e): the spin queued on the default stream ahead of a lazy
+# decode's resize, and the truck dataset's lazy run (iterations at bsz 8,
+# the decode cache in views)
+QUEUED_MS, QUEUED_TRIALS = 100.0, 5
+TRUCK_LAZY_ITERS, TRUCK_LAZY_CACHE = 256, 3
+# the C pack's thread counts timed beside the numpy pack
+PACK_THREADS = (1, 2, 4, 8)
 # the DMA microbenchmark: scripts/microbench_dma.py's defaults, and an odd
 # chunk count for the checks
 DMA_N, DMA_CAP, DMA_VPU_ITERS, DMA_ODD_CHUNKS = 262_144, 1_048_576, 24, 1001
@@ -420,6 +476,35 @@ def sync_sites(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sites
+
+
+@contextlib.contextmanager
+def pack_probe(threads=PACK_THREADS):
+    """The host library's pack as the loop calls it: each call runs on the
+    next of ``threads`` threads in turn, the order reversed every round
+    (1, 2, 4, 8, 8, 4, 2, 1, ...), and is timed on the host's clock
+    around the C call alone (a lazy camera's decode comes before it, in
+    Python). The bytes do not depend on the count. Yields {threads: [ms]}
+    as the calls come."""
+    from grendel_tpu_torch import native
+
+    lib = native.load()
+    real = lib.gtn_pack_gt_rows
+    order = list(threads) + list(threads)[::-1]
+    times = {n: [] for n in threads}
+
+    def pack(*args):
+        n = order[sum(map(len, times.values())) % len(order)]
+        t0 = time.perf_counter()
+        out = real(*args[:-1], n)
+        times[n].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    lib.gtn_pack_gt_rows = pack
+    try:
+        yield times
+    finally:
+        lib.gtn_pack_gt_rows = real
 
 
 def alternating_walls(a, b, steps):
@@ -2064,10 +2149,11 @@ def fourk_dist(dev, tag, kernels_of, scene, cfg, iterations, model_path):
     return {"entries": top, "ceiling": mt.isect_capacity_ceiling}
 
 
-def paeth_strip_png(path, img, rows):
+def paeth_strip_png(path, img, rows, kind=4):
     """Write the first ``rows`` rows of ``img`` (H, W, 3) uint8 as a PNG
-    whose every row carries the Paeth filter (4), the filter that
-    ``read_png`` undoes a pixel at a time, as PIL's writer often picks."""
+    whose every row carries the Paeth filter (4), or with ``kind`` 3 the
+    Average filter: the filters PIL's writer often picks and that the
+    plain ``png._unfilter`` undoes a pixel at a time."""
     import struct
     import zlib
 
@@ -2078,11 +2164,15 @@ def paeth_strip_png(path, img, rows):
     b[1:] = x[:-1]                            # above
     c = np.zeros_like(x)
     c[1:, 1:] = x[:-1, :-1]                   # above left
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    if kind == 3:
+        pred = (a + b) // 2
+    else:
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a,
+                        np.where(pb <= pc, b, c))
     filt = ((x - pred) & 0xFF).astype(np.uint8).reshape(rows, -1)
-    raw = np.concatenate([np.full((rows, 1), 4, np.uint8), filt], axis=1)
+    raw = np.concatenate([np.full((rows, 1), kind, np.uint8), filt], axis=1)
 
     def chunk(kind, data):
         return (struct.pack(">I", len(data)) + kind + data
@@ -2109,7 +2199,8 @@ def storage_cli_run(dev, kernels_of, argv, what, calls=None):
     from grendel_tpu_torch.scripts import train
 
     iterations = int(argv[argv.index("--iterations") + 1])
-    n_steps = iterations // BSZ
+    bsz = int(argv[argv.index("--bsz") + 1])
+    n_steps = -(-iterations // bsz)
     run = {"l1": [], "gt_ms": [], "launches": {k: 0 for k in kernels_of}}
     real_make = trainer_dist.make_trainer
 
@@ -2174,7 +2265,7 @@ def storage_cli_run(dev, kernels_of, argv, what, calls=None):
     run["psnr_after"] = tr.eval_psnr(tr.scene.test_cameras, 0)
     run["n_alive"] = tr._n_alive()
     sites = sync_sites(
-        lambda: tr.train(int(tr.state.iteration) + 5 * BSZ))
+        lambda: tr.train(int(tr.state.iteration) + 5 * bsz))
     run["syncs"] = sum(sites.values()) / 5
     print(f"# {what}: {iterations} iterations at {run['ips']:.2f} "
           f"iterations/s; step-0 L1 {float(run['l1'][0]):.7f}; held-out "
@@ -2289,7 +2380,10 @@ def storage_path(dev, tag, kernels_of, scene, tmp,
           f"{l1_rel_b:.3e} against (a); held-out PSNR "
           f"{lazy['psnr_before']:.3f} -> {lazy['psnr_after']:.3f} dB; ground "
           f"truth {lazy['gt_host_ms']:.3f} ms of host a step (median; "
-          f"{lazy['gt_miss_ms']:.3f} on a step that decoded); read_png "
+          f"{lazy['gt_miss_ms']:.3f} on a step that decoded); the pack's C "
+          f"call in the loop by thread count, median ms "
+          f"{fmt_pack(lazy)}; {lazy['syncs']:.1f} synchronizing calls a "
+          f"step, by site {lazy['sites']}; read_png "
           f"{png_ms:.2f} ms a view (filter 0, {views[0].width}x"
           f"{views[0].height}); Paeth rows {paeth_ms / paeth_rows:.3f} ms a "
           f"row ({paeth_ms:.1f} ms for {paeth_rows} rows, "
@@ -2315,18 +2409,28 @@ def storage_path(dev, tag, kernels_of, scene, tmp,
     return rec, errs
 
 
+def fmt_pack(run):
+    return ", ".join(f"{n}: {ms:.3f} ({run['pack_calls'][n]} calls)"
+                     for n, ms in run["pack_ms"].items())
+
+
 def lazy_rank_run(dev, kernels_of, data, argv, iterations, cache_bytes,
-                  model_path):
-    """(b): ``MultiRankTrainer`` on a one-rank NCCL group over ``data`` with
-    every camera lazy (``decode_mask`` refuses all) at threshold 0 and the
-    decode cache made anew under ``GRENDEL_GT_CACHE_BYTES`` =
-    ``cache_bytes``. Returns its decodes, the cache's most bytes after any
-    step, step-0 L1, held-out PSNR before and after and the host's ground
-    truth ms."""
+                  model_path, sync_steps=3):
+    """(b), and phase 15 (e): ``MultiRankTrainer`` on a one-rank NCCL group
+    over ``data`` with every camera lazy (``decode_mask`` refuses all) at
+    threshold 0 and the decode cache made anew under
+    ``GRENDEL_GT_CACHE_BYTES`` = ``cache_bytes``; the pack's C call runs on
+    each of ``PACK_THREADS`` threads in turn (:func:`pack_probe`), and each
+    lazy decode's resize round trip (``scene.resize_on``) is timed. Then
+    ``sync_steps`` more steps under the sync counter. Returns its decodes,
+    the cache's most bytes after any step, step-0 L1, held-out PSNR
+    before and after, the host's ground truth ms, the pack's ms by thread
+    count, the resize round trips' ms and the synchronizing calls a
+    step."""
     import torch.distributed as dist
 
     from grendel_tpu_torch import cameras as cam_mod
-    from grendel_tpu_torch.data.scene import Scene
+    from grendel_tpu_torch.data import scene as scene_mod
     from grendel_tpu_torch.engine.trainer_dist import MultiRankTrainer
     from grendel_tpu_torch.parallel import comm
     from grendel_tpu_torch.scripts import train
@@ -2336,15 +2440,25 @@ def lazy_rank_run(dev, kernels_of, data, argv, iterations, cache_bytes,
         argv[:i + 1] + [str(iterations)] + argv[i + 2:]
         + ["-m", model_path, "--preload_dataset_to_gpu_threshold", "0"])
     cfg = train.args_to_config(a)
-    scene = Scene(data, eval_split=True, llffhold=a.llffhold, seed=a.seed,
-                  decode_mask=lambda i, ci: False)
+    scene = scene_mod.Scene(data, eval_split=True, llffhold=a.llffhold,
+                            seed=a.seed, resolution=a.resolution,
+                            decode_mask=lambda i, ci: False, device=dev)
     old_env = os.environ.get("GRENDEL_GT_CACHE_BYTES")
     old_cache = cam_mod.GT_DECODE_CACHE
     os.environ["GRENDEL_GT_CACHE_BYTES"] = str(cache_bytes)
     cam_mod.GT_DECODE_CACHE = lru = cam_mod.DecodedLru()
     store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
     comm.init_group(dev, rank=0, world_size=1, store=store)
-    rec = {"l1": [], "bytes": [], "gt_ms": [], "misses": []}
+    rec = {"l1": [], "bytes": [], "gt_ms": [], "misses": [], "resize_ms": []}
+    real_resize = scene_mod.resize_on
+
+    def resize_on(*args):
+        t0 = time.perf_counter()
+        out = real_resize(*args)
+        rec["resize_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    scene_mod.resize_on = resize_on
     try:
         mt = MultiRankTrainer(cfg, scene, device=dev)
         backend = dist.get_backend()
@@ -2372,12 +2486,19 @@ def lazy_rank_run(dev, kernels_of, data, argv, iterations, cache_bytes,
 
         mt._step, mt._gt_rows = step, gt_rows
         before = mt.eval_psnr(scene.test_cameras, 0)["psnr"]
+        rec["resize_ms"].clear()          # the eval's decodes
         n0 = cam_mod.LAZY_DECODE_COUNT[0]
-        mt.train()
+        with pack_probe() as pack_ms:
+            mt.train()
         torch.cuda.synchronize()
         decodes = cam_mod.LAZY_DECODE_COUNT[0] - n0
+        n_steps, resize_ms = len(rec["l1"]), list(rec["resize_ms"])
+        gt_ms, misses = rec["gt_ms"][:n_steps], rec["misses"][:n_steps]
+        sites = sync_sites(lambda: mt.train(
+            int(mt.state.iteration) + sync_steps * a.bsz))
         after = mt.eval_psnr(scene.test_cameras, 0)["psnr"]
     finally:
+        scene_mod.resize_on = real_resize
         comm.destroy_group()
         del store
         cam_mod.GT_DECODE_CACHE = old_cache
@@ -2385,14 +2506,20 @@ def lazy_rank_run(dev, kernels_of, data, argv, iterations, cache_bytes,
             os.environ.pop("GRENDEL_GT_CACHE_BYTES", None)
         else:
             os.environ["GRENDEL_GT_CACHE_BYTES"] = old_env
-    require(len(rec["l1"]) == iterations // BSZ,
-            f"(b) ran {len(rec['l1'])} steps")
-    miss_ms = [t for t, m in zip(rec["gt_ms"], rec["misses"]) if m]
+    require(n_steps == iterations // a.bsz, f"(b) ran {n_steps} steps")
+    require(len(rec["l1"]) == n_steps + sync_steps,
+            f"(b) ran {len(rec['l1']) - n_steps} steps under the sync "
+            f"counter")
+    miss_ms = [t for t, m in zip(gt_ms, misses) if m]
     return dict(decodes=decodes, max_bytes=max(rec["bytes"]),
-                backend=backend,
+                backend=backend, steps=n_steps,
                 l1_0=float(rec["l1"][0]), psnr_before=before,
-                psnr_after=after, gt_host_ms=statistics.median(rec["gt_ms"]),
-                gt_miss_ms=statistics.median(miss_ms) if miss_ms else 0.0)
+                psnr_after=after, gt_host_ms=statistics.median(gt_ms),
+                gt_miss_ms=statistics.median(miss_ms) if miss_ms else 0.0,
+                pack_ms={n: statistics.median(v) for n, v in pack_ms.items()},
+                pack_calls={n: len(v) for n, v in pack_ms.items()},
+                resize_ms=resize_ms, syncs=sum(sites.values()) / sync_steps,
+                sites=dict(sites))
 
 
 def memory_scene(n_views, size, points=STORAGE_MEM_POINTS):
@@ -2611,6 +2738,384 @@ def kernel_launches(rows):
     return {k: sum(n for _, n, key in rows if name in key)
             for k, name in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd"),
                             ("K2s", "segment_sum_kernel"), ("K3", "scan"))}
+
+
+def resize_path(dev, timer, tag, gen):
+    """Phase 15 (a): the resize kernel bit-equal to its plain version on
+    each of ``RESIZE_CHECKS`` (random bytes; RGBA with transparent, opaque
+    and partial alpha), then timed on the truck view's shape beside its
+    plain version, its bound and ``F.interpolate`` (bilinear with
+    antialias, a near and not an equal function, on float32). Returns the
+    kernels line's row (without launches), its ``max_abs_err`` the largest
+    difference in levels measured over the five shapes."""
+    import torch.nn.functional as F
+
+    from grendel_tpu_torch.ops.resize import (coefficients, resize_bilinear,
+                                              resize_bilinear_plain)
+
+    alphas = torch.tensor([0, 255, 1, 77, 128, 254], dtype=torch.uint8,
+                          device=dev)
+    errs = []
+    for what, shape, size in RESIZE_CHECKS:
+        img = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                            generator=gen)
+        if shape[-1] == 4:
+            img[..., 3] = alphas[torch.randint(0, 6, shape[:2], device=dev,
+                                               generator=gen)]
+        got = resize_bilinear(img, size)
+        want = resize_bilinear_plain(img, size)
+        require(got.shape == (size[1], size[0], shape[-1]),
+                f"resize kernel gave {tuple(got.shape)} on {what}")
+        errs.append(int((got.int() - want.int()).abs().max()))
+        require(errs[-1] == 0 and torch.equal(got, want),
+                f"resize kernel differs from its plain version on {what}: "
+                f"{errs[-1]} levels")
+    print(f"# resize kernel: bit-equal to its plain version on "
+          f"{len(RESIZE_CHECKS)} shapes (largest difference {max(errs)} "
+          f"levels): " + "; ".join(w for w, _, _ in RESIZE_CHECKS))
+
+    _, shape, size = RESIZE_CHECKS[0]
+    img = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                        generator=gen)
+    (w, h), (in_h, in_w, c) = size, shape
+    row = {
+        "max_abs_err": max(errs),
+        "ms": timer.ms(lambda: resize_bilinear(img, size), 20),
+        "device_ms": timer.device_ms(lambda: resize_bilinear(img, size), 20),
+        "plain_ms": timer.ms(lambda: resize_bilinear_plain(img, size), 3),
+    }
+    f32 = img.permute(2, 0, 1)[None].float()
+    row["library_ms"] = timer.ms(lambda: F.interpolate(
+        f32, size=(h, w), mode="bilinear", align_corners=False,
+        antialias=True), 20)
+    # bytes: the input read once, the output written once; operations: a
+    # multiply and an add a tap of each output byte of each pass
+    n_bytes = in_h * in_w * c + h * w * c
+    taps_x = int(coefficients(in_w, w)[0][:, 1].sum())
+    taps_y = int(coefficients(in_h, h)[0][:, 1].sum())
+    n_ops = 2 * c * (in_h * taps_x + w * taps_y)
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / INT32_OPS_PER_S
+    row["bound_ms"] = max(bytes_ms, ops_ms)
+    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"# resize kernel {in_w}x{in_h} -> {w}x{h} RGB: {row['ms']:.4f} ms "
+          f"(device alone {row['device_ms']:.4f} ms), plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {n_bytes} bytes, {n_ops} int32 operations "
+          f"{ops_ms:.4f} ms), F.interpolate(bilinear, antialias) on float32 "
+          f"{row['library_ms']:.4f} ms {tag}")
+    return row
+
+
+def fixture_checks(tag):
+    """Phase 15 (b): each committed fixture JPEG of tests/data/jpeg decoded
+    on this host bit-equal to PIL's decode committed beside it."""
+    from grendel_tpu_torch.utils.jpeg import jpeg_header, read_jpeg
+    from grendel_tpu_torch.utils.png import read_png
+
+    names = sorted(p.stem for p in FIXTURE_DIR.glob("*.jpg"))
+    require(len(names) >= 7, f"JPEG fixtures missing: {names}")
+    for name in names:
+        want = read_png(str(FIXTURE_DIR / f"{name}.png"))
+        got = read_jpeg(str(FIXTURE_DIR / f"{name}.jpg"))
+        require(got.size == want.size and np.array_equal(
+            got.reshape(want.shape), want), f"fixture {name}.jpg decodes "
+            f"other than PIL")
+    kinds = {n: hex(jpeg_header(str(FIXTURE_DIR / f"{n}.jpg")).sof)
+             for n in names}
+    print(f"# JPEG fixtures: {len(names)} bit-equal to PIL's decodes "
+          f"({kinds}) {tag}")
+
+
+def truck_path(dev, tag, kernels_of, tmp, iterations=TRUCK_ITERS):
+    """Phase 15 (c): the truck configuration. The structured scene's
+    cameras and point cloud (its views not raytraced) written as COLMAP
+    with the committed truck JPEGs as its images; each view decoded
+    through the port (the JPEG decoder, then the resize kernel to the
+    ``-r -1`` rule's 1600x891), its bytes' sha256 equal to the JAX
+    package's decode's; the scene's load timed; then
+    examples/train_truck_1k/train_truck_1k.sh's flags through the CLI with
+    ``--iterations`` cut to ``iterations``: K1-K3 and K2s every step,
+    held-out PSNR rising; the resize kernel's launches in that run.
+    Returns the record."""
+    import hashlib
+    import json as json_mod
+    import shutil
+
+    from grendel_tpu_torch.data.readers import read_colmap_scene
+    from grendel_tpu_torch.data.scene import (Scene, decode_image,
+                                              resolve_resolution)
+    from grendel_tpu_torch.ops.resize import resize_bilinear
+    from grendel_tpu_torch.scripts.export_structured_dataset import \
+        write_colmap
+    from grendel_tpu_torch.testing import StructuredSyntheticScene
+    from grendel_tpu_torch.utils.jpeg import read_jpeg
+
+    t_phase = time.perf_counter()
+    meta = json_mod.loads((FIXTURE_DIR / "truck" / "sha256.json").read_text())
+    w, h = TRUCK_SIZE
+    size = resolve_resolution(w, h, TRUCK_RESOLUTION)
+    require(size == tuple(meta["size"]) == (1600, 891),
+            f"the -r {TRUCK_RESOLUTION} rule gives {size}")
+    cams = StructuredSyntheticScene(
+        width=w, height=h, n_cams=TRUCK_CAMS, llffhold=TRUCK_HOLD,
+        n_init_points=TRUCK_POINTS, seed=0, raytrace=False)
+    views = cams.train_cameras + cams.test_cameras
+    data = os.path.join(tmp, "truck")
+    write_colmap(data, views, cams.point_cloud, suffix=".jpg")
+    os.makedirs(os.path.join(data, "images"))
+    for c in views:
+        shutil.copy(FIXTURE_DIR / "truck" / f"{c.image_name}.jpg",
+                    os.path.join(data, "images"))
+    print(f"# reduced: the truck configuration "
+          f"(examples/train_truck_1k/train_truck_1k.sh) at Tanks&Temples "
+          f"truck's {w}x{h}, its 251 views cut to the structured scene's "
+          f"{len(views)} (PIL JPEGs at quality 90, 4:2:0, committed in "
+          f"tests/data/jpeg/truck), {TRUCK_POINTS} initial points, 30,000 "
+          f"iterations cut to {iterations} (densify from 500: none)")
+
+    infos = sorted(read_colmap_scene(data).train_cameras,
+                   key=lambda i: i.image_name)
+    require(len(infos) == len(meta["sha256"]) == TRUCK_CAMS,
+            f"{len(infos)} truck views")
+    jpeg_ms, resize_ms = [], []
+    for info in infos:
+        t0 = time.perf_counter()
+        arr = read_jpeg(info.image_path)
+        t1 = time.perf_counter()
+        out = resize_bilinear(torch.from_numpy(arr).to(dev), size).cpu()
+        t2 = time.perf_counter()
+        jpeg_ms.append((t1 - t0) * 1e3)
+        resize_ms.append((t2 - t1) * 1e3)
+        gt = decode_image(info, size, dev)
+        require(np.array_equal(gt, out.numpy().transpose(2, 0, 1)),
+                f"{info.image_name}: decode_image differs from the decoder "
+                f"and the kernel")
+        digest = hashlib.sha256(gt.tobytes()).hexdigest()
+        require(digest == meta["sha256"][os.path.basename(info.image_path)],
+                f"{info.image_name}: the port's decode differs from the JAX "
+                f"package's (sha256 {digest})")
+    t0 = time.perf_counter()
+    scene = Scene(data, eval_split=True, llffhold=TRUCK_HOLD, device=dev,
+                  resolution=TRUCK_RESOLUTION, decode_workers=1)
+    load_s = time.perf_counter() - t0
+    require(len(scene.train_cameras) == 8 and len(scene.test_cameras) == 2
+            and scene.resolution_wh == size, "the truck scene's split or "
+            "size")
+    del scene
+    print(f"# truck views: {len(infos)} decoded through the port, each "
+          f"sha256 equal to the JAX package's decode at {size[0]}x{size[1]}"
+          f"; JPEG {statistics.median(jpeg_ms):.2f} ms a view (median; "
+          f"{min(jpeg_ms):.2f}-{max(jpeg_ms):.2f}), resize on the card with "
+          f"its upload and download {statistics.median(resize_ms):.2f} ms a "
+          f"view ({min(resize_ms):.2f}-{max(resize_ms):.2f}); the scene's "
+          f"load {load_s:.2f} s for {len(infos)} views on one thread {tag}")
+
+    argv = ["-s", data, "-m", os.path.join(tmp, "truck_out"), "--eval",
+            "--llffhold", str(TRUCK_HOLD), "--iterations", str(iterations),
+            "--bsz", str(TRUCK_BSZ), "--test_iterations", str(iterations),
+            "--save_iterations", str(iterations), "--log_interval",
+            "100000", "--enable_timer", "--time_image_loading",
+            "--resolution", str(TRUCK_RESOLUTION), "--device", str(dev),
+            "-q"]
+    resize_bilinear.launches = 0
+    run = storage_cli_run(dev, kernels_of, argv, "truck (c)")
+    launches = resize_bilinear.launches
+    tr = run.pop("trainer")
+    require(launches == TRUCK_CAMS, f"the truck run resized {launches} "
+            f"views on the card, not {TRUCK_CAMS}")
+    require(tr.img_h == size[1] and tr.img_w == size[0],
+            f"the truck run trained at {tr.img_w}x{tr.img_h}")
+    require(run["psnr_after"]["psnr"] > run["psnr_before"]["psnr"],
+            f"truck: held-out PSNR did not rise: {run['psnr_before']} -> "
+            f"{run['psnr_after']}")
+    print("# truck step profile:")
+    dev_ms, rows = profile(
+        lambda: tr.train(int(tr.state.iteration) + TRUCK_BSZ), 3)
+    rec = dict(ips=run["ips"], dev_ms=dev_ms, peak_gib=run["peak_gib"],
+               launches=launches, jpeg_ms=statistics.median(jpeg_ms),
+               resize_ms=statistics.median(resize_ms), load_s=load_s,
+               data=data, argv=argv,
+               psnr=(run["psnr_before"]["psnr"], run["psnr_after"]["psnr"]))
+    del tr
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"# truck (c): {iterations} iterations at bsz {TRUCK_BSZ} "
+          f"({-(-iterations // TRUCK_BSZ)} steps) at {size[0]}x{size[1]}: "
+          f"{run['ips']:.2f} iterations/s over Trainer.end2end, device "
+          f"{dev_ms:.3f} ms a step (profiler, 3 steps), "
+          f"{kernel_launches(rows)} launches a step, peak "
+          f"{run['peak_gib']:.3f} GiB; held-out PSNR {rec['psnr'][0]:.3f} -> "
+          f"{rec['psnr'][1]:.3f} dB; K1-K3 and K2s every step "
+          f"({run['launches']}); the resize kernel {launches} launches; "
+          f"{rec['phase_s']:.1f} s {tag}")
+    return rec
+
+
+def lazy_resize(dev, tag, kernels_of, truck, tmp):
+    """Phase 15 (e): a resize inside a training step. First a truck view's
+    round trip (upload, the kernel, download) behind ``QUEUED_MS`` of a
+    spin kernel queued on the default stream, as a step's kernels are
+    queued when a lazily stored camera decodes, ``QUEUED_TRIALS`` times:
+    ``scene.resize_on``, on a stream of its own, must take under half the
+    queue (median); the same round trip on the default stream, which
+    waits for the queue, is printed beside it. Then the truck dataset through ``MultiRankTrainer`` at
+    threshold 0 with every camera lazy and the decode cache at
+    ``TRUCK_LAZY_CACHE`` views (:func:`lazy_rank_run`): the ground
+    truth's host ms a step, each lazy decode's resize round trip, the
+    synchronizing calls a step, the pack by thread count. Returns the
+    record."""
+    from grendel_tpu_torch.data.readers import read_colmap_scene
+    from grendel_tpu_torch.data.scene import resize_on
+    from grendel_tpu_torch.ops.resize import resize_bilinear
+    from grendel_tpu_torch.utils.jpeg import read_jpeg
+
+    t_phase = time.perf_counter()
+    info = read_colmap_scene(truck["data"]).train_cameras[0]
+    arr = read_jpeg(info.image_path)
+    size = (1600, 891)
+
+    def default_stream():
+        return resize_bilinear(torch.from_numpy(arr).to(dev),
+                               size).cpu().numpy()
+
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    torch.cuda._sleep(10_000_000)
+    e1.record()
+    torch.cuda.synchronize()
+    cycles = int(10_000_000 * QUEUED_MS / e0.elapsed_time(e1))
+    fns = {"own": lambda: resize_on(arr, size, dev),
+           "default": default_stream}
+    rt = {how: [] for how in fns}
+    outs = {how: fn() for how, fn in fns.items()}
+    require(np.array_equal(outs["own"], outs["default"]), "(e): the resize "
+            "on its own stream differs from the default stream's")
+    for _ in range(QUEUED_TRIALS):
+        for how, fn in fns.items():
+            torch.cuda.synchronize()
+            e0.record()
+            torch.cuda._sleep(cycles)
+            e1.record()
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            rt[how].append((ms, e0.elapsed_time(e1)))
+    own, dflt = (statistics.median(t for t, _ in rt[h]) for h in fns)
+    queued = statistics.median(q for _, q in rt["own"])
+    print(f"# (e) a truck view's resize round trip behind {queued:.1f} ms "
+          f"queued on the default stream (median of {QUEUED_TRIALS}): "
+          f"scene.resize_on (a stream of its own) {own:.2f} ms ("
+          + ", ".join(f"{t:.2f}" for t, _ in rt["own"])
+          + f"); on the default stream {dflt:.2f} ms ("
+          + ", ".join(f"{t:.2f}" for t, _ in rt["default"]) + f") {tag}")
+    require(own < 0.5 * queued, f"(e): a lazy decode's resize waited for "
+            f"the queued kernels: {own:.2f} ms behind {queued:.1f} ms")
+
+    view_bytes = 3 * size[0] * size[1]
+    lazy = lazy_rank_run(dev, kernels_of, truck["data"],
+                         truck["argv"],
+                         TRUCK_LAZY_ITERS, TRUCK_LAZY_CACHE * view_bytes,
+                         os.path.join(tmp, "truck_lazy"))
+    require(lazy["decodes"] > 0 and len(lazy["resize_ms"]) > 0,
+            "(e): no lazy decode resized")
+    require(lazy["max_bytes"] <= TRUCK_LAZY_CACHE * view_bytes,
+            f"(e): the decode cache held {lazy['max_bytes']} bytes over its "
+            f"budget")
+    require(lazy["psnr_after"] > lazy["psnr_before"], "(e): held-out PSNR "
+            "did not rise")
+    r = lazy["resize_ms"]
+    lazy.update(own_ms=own, default_ms=dflt, queued_ms=queued,
+                phase_s=time.perf_counter() - t_phase)
+    print(f"# (e) the truck dataset lazy, {TRUCK_LAZY_ITERS} iterations of "
+          f"MultiRankTrainer (world size 1, {lazy['backend']}, bsz "
+          f"{TRUCK_BSZ}, threshold 0), decode cache {TRUCK_LAZY_CACHE} views: "
+          f"{lazy['decodes']} decodes; ground truth "
+          f"{lazy['gt_host_ms']:.3f} ms of host a step (median; "
+          f"{lazy['gt_miss_ms']:.3f} on a step that decoded); the resize's "
+          f"round trip in a lazy decode {statistics.median(r):.2f} ms "
+          f"(median of {len(r)}; {min(r):.2f}-{max(r):.2f}); "
+          f"{lazy['syncs']:.1f} synchronizing calls a step, by site "
+          f"{lazy['sites']}; the pack's C call in the loop by thread count, "
+          f"median ms {fmt_pack(lazy)}; held-out PSNR "
+          f"{lazy['psnr_before']:.3f} -> {lazy['psnr_after']:.3f} dB; "
+          f"{lazy['phase_s']:.1f} s {tag}")
+    return lazy
+
+
+def c_paths(tag, views, tmp, steps=20):
+    """Phase 15 (d): the C paths beside their plain paths. A Paeth and an
+    Average strip of a view read through ``read_png`` (the C unfilter),
+    bit-equal to the plain ``_unfilter`` row by row; the C pack bit-equal
+    to the numpy pack on the batches of phase 14 (a) (bsz 2 of its views)
+    over a world-size-1 span and a D=4 uneven division, with each pack's
+    host ms per step."""
+    import zlib
+
+    from grendel_tpu_torch import native
+    from grendel_tpu_torch.parallel.division import pack_gt_rows
+    from grendel_tpu_torch.utils.png import _unfilter, read_png
+
+    img = views[0].gt().transpose(1, 2, 0)
+    rows = min(104, img.shape[0])
+    for kind, name in ((4, "Paeth"), (3, "Average")):
+        path = os.path.join(tmp, f"strip{kind}.png")
+        paeth_strip_png(path, img, rows, kind)
+        t0 = time.perf_counter()
+        got = read_png(path)
+        c_ms = (time.perf_counter() - t0) * 1e3
+        data = open(path, "rb").read()
+        idat = data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8]
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+            rows, -1).astype(np.int32)
+        t0 = time.perf_counter()
+        prev = np.zeros(raw.shape[1] - 1, np.int32)
+        plain = np.empty((rows, raw.shape[1] - 1), np.int32)
+        for y in range(rows):
+            prev = plain[y] = _unfilter(int(raw[y, 0]), raw[y, 1:], prev, 3)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(got.reshape(rows, -1), plain)
+                and np.array_equal(got, img[:rows]),
+                f"the {name} strip: the C unfilter differs from the plain "
+                f"one")
+        print(f"# {name} strip, {rows} rows of {img.shape[1]} px: read_png "
+              f"(C unfilter) {c_ms / rows:.4f} ms a row ({c_ms:.2f} ms, with "
+              f"the inflate), the plain _unfilter {plain_ms / rows:.3f} ms a "
+              f"row; bit-equal {tag}")
+
+    h, w = views[0].height, views[0].width
+    tiles_y = -(-h // TILE_H)
+    # the views as a dataset's loader gives them, (3, H, W) contiguous (the
+    # raytraced scene keeps a transposed view of each); the numpy pack and
+    # the C pack at its default thread count (the loop's runs time the
+    # counts, pack_probe), each into a buffer of its own kept across
+    # steps, as the loop keeps its pinned buffers; they go first in turns
+    images = [np.ascontiguousarray(v.gt()) for v in views]
+    packs = {"numpy": pack_gt_rows, "C": native.pack_gt_rows}
+    times = {k: [] for k in packs}
+    for d_count, cuts in ((1, ()), (4, (3, 2 * tiles_y - 5, 2 * tiles_y - 4))):
+        pos = np.array((0,) + cuts + (2 * tiles_y,), np.int32)
+        max_rows = int(np.diff(pos).max())
+        bufs = {k: np.empty((d_count, max_rows, 3, TILE_H, w), np.uint8)
+                for k in packs}
+        for s in range(steps):
+            batch = [images[(2 * s) % len(images)],
+                     images[(2 * s + 1) % len(images)]]
+            for k in (list(packs) if s % 2 == 0 else list(packs)[::-1]):
+                t0 = time.perf_counter()
+                packs[k](None, pos, d_count, max_rows, TILE_H, h, w,
+                         gt_override=batch, out=bufs[k])
+                if d_count == 1:
+                    times[k].append((time.perf_counter() - t0) * 1e3)
+            require(all(np.array_equal(b, bufs["numpy"])
+                        for b in bufs.values()), f"the C pack differs from "
+                    f"the numpy pack at D={d_count}, step {s}")
+    print(f"# ground-truth pack, bsz 2 of {w}x{h}, world size 1, into a "
+          f"buffer kept across steps, host ms a step (median of {steps}, in "
+          f"turns): numpy {statistics.median(times['numpy']):.3f}, C "
+          f"{statistics.median(times['C']):.3f}; bit-equal there and at "
+          f"D=4 {tag}")
 
 
 def main(argv=None):
@@ -2968,8 +3473,20 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
         _, storage_errs = storage_path(dev, tag, kernels_of, struct_scene,
                                        tmp)
-    del struct_scene
     stamp(t_start, "host-resident ground truth checked")
+
+    # --- 15. images without PIL: the resize kernel, the JPEG decoder,
+    # the truck configuration, the C paths --------------------------------
+    resize_row = resize_path(dev, timer, tag, gen)
+    fixture_checks(tag)
+    with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
+        truck = truck_path(dev, tag, kernels_of, tmp)
+        lazy_resize(dev, tag, kernels_of, truck, tmp)
+        c_paths(tag, sorted(struct_scene.train_cameras
+                            + struct_scene.test_cameras,
+                            key=lambda c: c.uid), tmp)
+    del struct_scene
+    stamp(t_start, "images without PIL checked")
 
     # --- 9. kernel timings -------------------------------------------------
     k1_ms = timer.ms(lambda: k1(*blend_in, **blend_kw), 20)
@@ -3115,6 +3632,14 @@ def main(argv=None):
          "launches": dma_launches["K5"],
          "max_abs_err": dma_errs["dma_scattered"], **k5_row,
          "bound_by": "bytes"},
+        # the ground truth's resize (no TPU kernel: PIL's resize in the JAX
+        # package's decode); max_abs_err: the largest difference from its
+        # plain version over phase 15 (a)'s five shapes; launches over
+        # the truck run; library: F.interpolate, a near function
+        {"name": "resize_bilinear", "route": "cuda",
+         "source": "grendel_tpu_torch/csrc/resize.cu",
+         "replaces": "grendel_tpu/data/scene.py:63",
+         "launches": truck["launches"], **resize_row},
     ]}
     print(card)
     print(json.dumps(kernels_line))

@@ -8,8 +8,9 @@ black background compositing for Blender sets, and the scene radius of
 1.1 x the largest camera distance from the mean camera center. Where a
 file gives no colors or no points, the random fill comes from
 ``np.random.default_rng(0)``. The size of a PNG comes from its header
-(utils/png.py), with no PIL; other formats are opened with PIL, imported
-inside :func:`pil_image`, which names the file when PIL is missing.
+(utils/png.py), a JPEG's from its frame header (utils/jpeg.py), with no
+PIL; other formats are opened with PIL, imported inside
+:func:`pil_image`, which names the file when PIL is missing.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 
 from . import colmap
+from ..utils.jpeg import jpeg_header
 from ..utils.math3d import focal_to_fov, fov_to_focal, world_to_view
 from ..utils.ply import read_ply, write_ply
 from ..utils.png import png_header
@@ -72,15 +74,15 @@ def pil_image(path: str):
         from PIL import Image
     except ImportError as e:
         raise ImportError(f"{path}: reading this image needs PIL, which is "
-                          f"not installed (8-bit PNGs at their own size are "
-                          f"read without it)") from e
+                          f"not installed (JPEGs and 8-bit PNGs are read "
+                          f"without it)") from e
     return Image
 
 
 def _image_size(path: str):
-    """(w, h) of an image: a PNG's from its header, another format's
-    through PIL."""
-    hdr = png_header(path)
+    """(w, h) of an image: a PNG's from its header, a JPEG's from its
+    frame header, another format's through PIL."""
+    hdr = png_header(path) or jpeg_header(path)
     if hdr is not None:
         return hdr.width, hdr.height
     with pil_image(path).open(path) as im:

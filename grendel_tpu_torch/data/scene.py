@@ -12,9 +12,11 @@ it carries a loader, and ``Camera.gt`` decodes it on demand.
 packages draw the same camera sequence from the same seed; with local
 sampling, ``next_batch_grouped`` draws each rank's group.
 
-An 8-bit PNG at its own size is decoded by utils/png.py with no PIL,
-which the card's machine lacks; other formats, and resizing under
-``--resolution``, go through PIL.
+Images are read without PIL, which the card's machine lacks: a JPEG by
+utils/jpeg.py (native/jpeg_decode.c, bit-equal to PIL's decode), an 8-bit
+PNG by utils/png.py; a resize under ``--resolution`` is PIL's bilinear
+resize, bit for bit, on the scene's device (ops/resize.py, a kernel on
+the card). Only the formats no configuration uses go through PIL.
 """
 
 from __future__ import annotations
@@ -24,8 +26,12 @@ import random
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..cameras import Camera
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..ops.resize import resize_bilinear
+from ..utils.jpeg import jpeg_header, read_jpeg
 from ..utils.png import png_header, read_png
 from .readers import (CameraInfo, SceneInfo, pil_image, read_blender_scene,
                       read_colmap_scene)
@@ -47,30 +53,51 @@ def resolve_resolution(orig_w: int, orig_h: int,
     return max(1, int(orig_w / d)), max(1, int(orig_h / d))
 
 
-def decode_image(info: CameraInfo, size: Optional[tuple] = None) -> np.ndarray:
-    """CameraInfo -> (3, H, W) uint8, alpha composited over ``info.bg``;
-    ``size`` = (w, h) resizes at decode.
-
-    By file format: an 8-bit PNG that needs no resize is read by
-    ``read_png``, without PIL (grey with alpha as RGBA of its grey);
-    anything else goes through PIL, which raises naming the file where it
-    is not installed."""
-    path = info.image_path
+def read_image(path: str) -> np.ndarray:
+    """(H, W) uint8 of a grey image, (H, W, C) of another, C = 3 or 4 (grey
+    with alpha reads as RGBA of its grey), as PIL's ``np.asarray`` gives
+    it: an 8-bit PNG through ``read_png``, a JPEG through ``read_jpeg``,
+    both without PIL; any other format through PIL, which raises naming
+    the file where it is not installed."""
     hdr = png_header(path)
-    if (hdr is not None and hdr.readable
-            and size in (None, (hdr.width, hdr.height))):
+    if hdr is not None and hdr.readable:
         arr = read_png(path)
         if arr.shape[-1] == 2:
-            arr = arr[..., [0, 0, 0, 1]]
-        elif arr.shape[-1] == 1:
+            return arr[..., [0, 0, 0, 1]]
+        return arr[..., 0] if arr.shape[-1] == 1 else arr
+    if hdr is None and jpeg_header(path) is not None:
+        return read_jpeg(path)
+    Image = pil_image(path)
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGBA") if im.mode == "RGBA" else im)
+
+
+def resize_on(arr: np.ndarray, size: tuple, device) -> np.ndarray:
+    """(h, w, C) uint8 of the host image ``arr`` (H, W, C) resized to
+    ``size`` = (w, h) with PIL's bilinear filter on ``device``, back on the
+    host. On the card the upload, the kernel and the download run on a
+    stream of their own, so a decode made inside a training step (a lazily
+    stored camera's) waits for its own work, not for the step's queued
+    kernels."""
+    dev = resolve_device(device)
+    img = torch.from_numpy(arr)
+    if dev.type != "cuda":
+        return resize_bilinear(img.to(dev), size).cpu().numpy()
+    with torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev)):
+        return resize_bilinear(img.to(dev), size).cpu().numpy()
+
+
+def decode_image(info: CameraInfo, size: Optional[tuple] = None,
+                 device=DEFAULT_DEVICE) -> np.ndarray:
+    """CameraInfo -> (3, H, W) uint8, alpha composited over ``info.bg``;
+    ``size`` = (w, h) resizes at decode, with PIL's bilinear filter, on
+    ``device`` (:func:`read_image` reads the file, :func:`resize_on`
+    resizes)."""
+    arr = read_image(info.image_path)
+    if size is not None and size != (arr.shape[1], arr.shape[0]):
+        arr = resize_on(arr.reshape(arr.shape[:2] + (-1,)), size, device)
+        if arr.shape[-1] == 1:
             arr = arr[..., 0]
-    else:
-        Image = pil_image(path)
-        with Image.open(path) as im:
-            if size is not None and size != (im.width, im.height):
-                im = im.resize(size, Image.BILINEAR)
-            arr = np.asarray(im.convert("RGBA") if im.mode == "RGBA"
-                             else im)
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     if arr.shape[-1] == 4:
@@ -83,18 +110,20 @@ def decode_image(info: CameraInfo, size: Optional[tuple] = None) -> np.ndarray:
 
 
 def camera_from_info(uid: int, info: CameraInfo, decode: bool = True,
-                     size: Optional[tuple] = None) -> Camera:
+                     size: Optional[tuple] = None,
+                     device=DEFAULT_DEVICE) -> Camera:
     """The camera of ``info``, its ground truth decoded now, or with
-    ``decode`` False decoded on demand by ``Camera.gt``."""
+    ``decode`` False decoded on demand by ``Camera.gt``; a resize runs on
+    ``device``."""
     w, h = size if size is not None else (info.width, info.height)
     return Camera(
         uid=uid, image_name=info.image_name, R=info.R, T=info.T,
         fovx=info.fovx,   # FoV does not change under a uniform rescale
         fovy=info.fovy, width=w, height=h,
-        gt_image_u8=decode_image(info, size=size) if decode else None,
+        gt_image_u8=decode_image(info, size, device) if decode else None,
         gt_loader=(None if decode
-                   else lambda info=info, size=size: decode_image(info,
-                                                                  size)))
+                   else lambda info=info, size=size: decode_image(
+                       info, size, device)))
 
 
 class Scene:
@@ -114,6 +143,7 @@ class Scene:
         decode_mask: Optional[Callable[[int, CameraInfo], bool]] = None,
         resolution: float = -1.0,
         decode_workers: int = 8,
+        device=DEFAULT_DEVICE,
     ):
         if os.path.exists(os.path.join(source_path, "sparse")):
             info = read_colmap_scene(source_path, images, eval_split,
@@ -144,8 +174,8 @@ class Scene:
             random.Random(seed).shuffle(train_infos)
 
         def build(infos: Sequence[CameraInfo]) -> List[Camera]:
-            # zlib and PIL release the interpreter lock while they
-            # decompress, so threads decode in parallel
+            # zlib and the C decoders release the interpreter lock, so
+            # threads decode in parallel
             from concurrent.futures import ThreadPoolExecutor
 
             decode = [decode_mask is None or bool(decode_mask(i, ci))
@@ -153,7 +183,8 @@ class Scene:
             with ThreadPoolExecutor(max_workers=max(1, decode_workers)) as ex:
                 return list(ex.map(
                     lambda t: camera_from_info(t[0], t[1], decode=t[2],
-                                               size=self.resolution_wh),
+                                               size=self.resolution_wh,
+                                               device=device),
                     zip(range(len(infos)), infos, decode)))
 
         self.train_cameras: List[Camera] = build(train_infos)

@@ -54,13 +54,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import native
 from ..cameras import Camera, batch_camera_arrays
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.gaussian_model import (GaussianParams, init_from_pcd,
                                      round_capacity)
 from ..parallel import comm
 from ..parallel.division import (DivisionHistory, divide_rows,
-                                 divide_rows_whole_images, pack_gt_rows)
+                                 divide_rows_whole_images)
 from ..parallel.redistribute import redistribute
 from ..parallel.sharded import (DistributedTrainer, ParallelConfig,
                                 shard_state)
@@ -237,15 +238,15 @@ class MultiRankTrainer(Trainer):
         """This rank's (R, 3, tile_h, W) uint8 ground-truth rows of
         ``batch`` (bank indices ``ids``) at the division ``pos_np``, zero
         past its span: gathered on the device from a preloaded bank, else
-        packed on the host by parallel/division.py ``pack_gt_rows`` over
-        this rank's span alone (a lazily stored camera decodes only where
-        its rows are this rank's) and uploaded. Both give the same
-        bytes."""
+        packed on the host by ``native.pack_gt_rows`` (threaded C with the
+        contract of parallel/division.py ``pack_gt_rows``) over this
+        rank's span alone (a lazily stored camera decodes only where its
+        rows are this rank's) and uploaded. Both give the same bytes."""
         lo, hi = int(pos_np[self.rank]), int(pos_np[self.rank + 1])
         shape = (pcfg.n_row_slots, 3, pcfg.tile_h, self.img_w)
         if self._gt_bank is None:
             span = np.array([lo, hi], np.int32)
-            return self._upload_gt(shape, lambda buf: pack_gt_rows(
+            return self._upload_gt(shape, lambda buf: native.pack_gt_rows(
                 batch, span, 1, pcfg.n_row_slots, pcfg.tile_h, self.img_h,
                 self.img_w, out=buf[None]))
         rows = lo + torch.arange(pcfg.n_row_slots, device=self.device)

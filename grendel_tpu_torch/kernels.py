@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("scan", "rasterize_fwd", "rasterize_bwd", "segment_sum",
-           "dma_bench")
+           "dma_bench", "resize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -81,6 +81,16 @@ SIGNATURES = {
             _ptr, _c_i64, _c_int,            # table n_rows width
             _ptr, _c_i64, _c_int,            # ids n_chunks vpu_iters
             _ptr, _ptr,                      # out stream
+        ]),
+    },
+    "resize": {
+        "gts_resize_bilinear": (_c_int, [
+            _ptr, _ptr, _ptr,                # in tmp out
+            _c_int, _c_int, _c_int, _c_int,  # in_h in_w out_h out_w
+            _c_int,                          # channels
+            _ptr, _ptr, _c_int,              # xbounds xk xksize
+            _ptr, _ptr, _c_int,              # ybounds yk yksize
+            _ptr,                            # stream
         ]),
     },
 }

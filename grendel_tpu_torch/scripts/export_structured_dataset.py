@@ -36,27 +36,37 @@ def export_structured_dataset(out: str, width: int, height: int,
 def write_dataset(out: str, cameras, point_cloud) -> None:
     """Write ``cameras`` (one PINHOLE intrinsic, that of the first; each
     with its ground truth) and ``point_cloud`` as a COLMAP dataset under
-    ``out``."""
+    ``out``: one PNG a view and :func:`write_colmap`'s ``sparse/0``."""
+    from ..utils.png import write_png
+
+    img_dir = os.path.join(out, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    for c in cameras:
+        write_png(os.path.join(img_dir, f"{c.image_name}.png"),
+                  c.gt().transpose(1, 2, 0))
+    write_colmap(out, cameras, point_cloud)
+
+
+def write_colmap(out: str, cameras, point_cloud,
+                 suffix: str = ".png") -> None:
+    """Write ``sparse/0/{cameras,images,points3D}.bin`` under ``out`` for
+    ``cameras`` (one PINHOLE intrinsic, that of the first), naming view
+    ``c`` ``c.image_name + suffix``, and ``point_cloud``."""
     from ..data.colmap import (ColmapCamera, ColmapImage, rotmat_to_qvec,
                                write_cameras_binary, write_images_binary,
                                write_points3d_binary)
-    from ..utils.png import write_png
 
     cams = sorted(cameras, key=lambda c: c.uid)
-    img_dir = os.path.join(out, "images")
     sparse = os.path.join(out, "sparse", "0")
-    os.makedirs(img_dir, exist_ok=True)
     os.makedirs(sparse, exist_ok=True)
-
     images = {}
     for c in cams:
-        name = f"{c.image_name}.png"
-        write_png(os.path.join(img_dir, name), c.gt().transpose(1, 2, 0))
         # COLMAP stores world-to-camera: the qvec of R_w2c (Camera.R^T;
         # the reader transposes it back) and tvec = Camera.T
         images[c.uid + 1] = ColmapImage(
             id=c.uid + 1, qvec=rotmat_to_qvec(c.R.T),
-            tvec=np.asarray(c.T, np.float64), camera_id=1, name=name)
+            tvec=np.asarray(c.T, np.float64), camera_id=1,
+            name=f"{c.image_name}{suffix}")
 
     c0 = cams[0]
     width, height = c0.width, c0.height

@@ -107,7 +107,7 @@ def make_scene(a, synthetic, device):
 
     return Scene(a.source_path, images=a.images, eval_split=a.eval,
                  llffhold=a.llffhold, white_background=a.white_background,
-                 resolution=a.resolution)
+                 resolution=a.resolution, device=device)
 
 
 def newest_iteration(model_path: str) -> int:

@@ -287,7 +287,7 @@ def make_scene(a, device, decode_mask=None):
                   llffhold=a.llffhold, white_background=a.white_background,
                   num_train=a.num_train_cameras, num_test=a.num_test_cameras,
                   seed=a.seed, resolution=a.resolution,
-                  decode_mask=decode_mask,
+                  decode_mask=decode_mask, device=device,
                   decode_workers=8 if a.multiprocesses_image_loading else 1)
     if a.time_image_loading:
         print(f"[timing] scene + GT decode: {time.time() - t_load:.2f}s",

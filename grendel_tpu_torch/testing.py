@@ -565,12 +565,14 @@ class StructuredSyntheticScene:
     """The raytraced structured scene in ``Scene``'s duck type: ``n_cams``
     cameras on three interleaved elevation rings of a hemisphere above the
     scene, ordered by azimuth, every ``llffhold``-th held out, so test
-    views sit between training views on every ring."""
+    views sit between training views on every ring. With ``raytrace``
+    False the cameras carry no ground truth (for a dataset whose images
+    were rendered before)."""
 
     def __init__(self, width: int = 1280, height: int = 832,
                  n_cams: int = 72, llffhold: int = 8,
                  n_init_points: int = 100_000, seed: int = 0,
-                 fovx: float = 1.1):
+                 fovx: float = 1.1, raytrace: bool = True):
         target = np.array([0.0, 0.42, 0.0])
         rings = [  # (distance from target, elevation above horizon, share)
             (4.4, np.deg2rad(21.0), 0.5),
@@ -598,7 +600,8 @@ class StructuredSyntheticScene:
         # numpy lets go of the interpreter lock in its array passes, so the
         # views raytrace in parallel
         with ThreadPoolExecutor(min(len(cameras), os.cpu_count() or 1)) as ex:
-            for cam, img in zip(cameras, ex.map(raytrace_image, cameras)):
+            for cam, img in zip(cameras, ex.map(raytrace_image, cameras)
+                                if raytrace else ()):
                 cam.gt_image_u8 = np.asarray(
                     np.clip(img, 0, 1) * 255).astype(np.uint8)
         self.test_cameras = [c for i, c in enumerate(cameras)

@@ -6,7 +6,9 @@ tool and the dataset readers (data/readers.py, data/scene.py) read them
 with :func:`read_png`, on machines that have zlib and numpy but not PIL.
 The reader takes any 8-bit, non-interlaced grey, grey with alpha, RGB or
 RGBA PNG, with every row filter, so it also reads what PIL or another
-tool wrote; :func:`png_header` says whether it can.
+tool wrote; :func:`png_header` says whether it can. zlib inflates the
+rows and native/png_unfilter.c undoes their filters; :func:`_unfilter`
+is its plain version, a row at a time in numpy.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import zlib
 from typing import NamedTuple, Optional
 
 import numpy as np
+
+from ..native import png_unfilter
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels
@@ -53,7 +57,9 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
 
 def _unfilter(kind: int, line: np.ndarray, prev: np.ndarray,
               bpp: int) -> np.ndarray:
-    """One row's bytes (int32) from its filtered bytes and the row above."""
+    """One row's bytes (int32) from its filtered bytes and the row above:
+    the plain version of native/png_unfilter.c (the Average and Paeth
+    filters a pixel at a time)."""
     if kind == 0:
         return line
     if kind == 2:
@@ -125,9 +131,10 @@ def read_png(path: str) -> np.ndarray:
                          f"{ctype}, interlace {interlace})")
     c = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, 1 + w * c).astype(np.int32)
-    out = np.empty((h, w * c), np.int32)
-    prev = np.zeros(w * c, np.int32)
-    for y in range(h):
-        prev = out[y] = _unfilter(int(raw[y, 0]), raw[y, 1:], prev, c)
-    return out.astype(np.uint8).reshape(h, w, c)
+    if raw.size < h * (1 + w * c):
+        raise ValueError(f"{path}: truncated PNG data")
+    try:
+        out = png_unfilter(raw[:h * (1 + w * c)].reshape(h, 1 + w * c), c)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return out.reshape(h, w, c)

@@ -105,8 +105,9 @@ def test_colmap_scene_matches_jax(colmap_dir):
 
 @pytest.mark.parametrize("resolution", [-1, 2])
 def test_scene_and_dataset_match_jax(colmap_dir, resolution):
+    # the port resizes on the scene's device (the card by default)
     t = TS.Scene(str(colmap_dir), eval_split=True, llffhold=8, seed=3,
-                 resolution=resolution)
+                 resolution=resolution, device="cpu")
     j = JS.Scene(str(colmap_dir), eval_split=True, llffhold=8, seed=3,
                  resolution=resolution)
     assert t.cameras_extent == j.cameras_extent

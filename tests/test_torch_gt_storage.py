@@ -191,17 +191,29 @@ def test_decode_png_without_pil(tmp_path, monkeypatch, mode):
 
 
 def test_jpeg_without_pil_names_the_file(tmp_path, monkeypatch):
-    """Another format needs PIL: without it the reader raises and names
-    the file (no fallback)."""
+    """A JPEG decodes without PIL, to JAX's PIL decode; a truncated JPEG
+    raises naming the file, and so does a format that needs PIL when PIL
+    is missing (no fallback)."""
     from PIL import Image
 
+    rng = np.random.default_rng(3)
     path = tmp_path / "view.jpg"
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
+    Image.fromarray(rng.integers(0, 255, (19, 27, 3), np.uint8)).save(path)
+    want = JS.decode_image(_png_info(path))
+    cut = tmp_path / "cut.jpg"
+    cut.write_bytes(path.read_bytes()[:300])
+    bmp = tmp_path / "view.bmp"
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(bmp)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="view.jpg"):
-        TS.decode_image(TR.CameraInfo(*_png_info(path)))
-    with pytest.raises(ImportError, match="view.jpg"):
-        TR._image_size(str(path))
+    np.testing.assert_array_equal(
+        TS.decode_image(TR.CameraInfo(*_png_info(path))), want)
+    assert TR._image_size(str(path)) == (27, 19)
+    with pytest.raises(ValueError, match="cut.jpg"):
+        TS.decode_image(TR.CameraInfo(*_png_info(cut)))
+    with pytest.raises(ImportError, match="view.bmp"):
+        TS.decode_image(TR.CameraInfo(*_png_info(bmp)))
+    with pytest.raises(ImportError, match="view.bmp"):
+        TR._image_size(str(bmp))
 
 
 @pytest.mark.parametrize("local_sampling", [False, True])
