@@ -195,6 +195,20 @@ Phases, each of which fails the run:
      and an Average strip through the C unfilter, bit-equal to the plain
      ``_unfilter``, and the C ground-truth pack bit-equal to the numpy pack
      on phase 14's views, each with its host ms;
+  16. the graft entry points (grendel_tpu_torch/graft_entry.py, the
+     port's __graft_entry__.py): (a) ``entry()``'s (3, 128, 160) render of
+     the flagship scene on the card: finite, K1 and K3 launched, within
+     1e-5 of ``entry(device="cpu")``'s on the same arguments, bit-equal
+     called twice, its first call's ms and the median of 20; (b)
+     ``dryrun_multichip(1)``: the JAX dry run's 48-iteration schedule
+     (densify with capacity growth, redistribution, opacity reset,
+     per-rank checkpoint at 24 and resume, distributed eval) on one NCCL
+     rank on cuda:0 in a spawned process, every check of the dry run
+     passing and K1, K2, K2s and K3 launched in every step by the counts
+     the rank returns; its extras and summary lines, device ms per step and
+     wall seconds; (c) where the machine has 2 or more cards, the dry run
+     over each power of two up to the count, with its parity against one
+     rank; on one card a line says that (c) did not run and why;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -301,6 +315,10 @@ PACK_THREADS = (1, 2, 4, 8)
 # the DMA microbenchmark: scripts/microbench_dma.py's defaults, and an odd
 # chunk count for the checks
 DMA_N, DMA_CAP, DMA_VPU_ITERS, DMA_ODD_CHUNKS = 262_144, 1_048_576, 24, 1001
+# the graft entry points (phase 16): entry's render on the card against
+# its plain versions on the CPU (the render bound of phase 5's small scene
+# is 1e-4; K1 is bit-equal in practice)
+ENTRY_TOL = 1e-5
 
 
 def require(ok, what):
@@ -3118,6 +3136,98 @@ def c_paths(tag, views, tmp, steps=20):
           f"D=4 {tag}")
 
 
+def entry_path(dev, tag, kernels_of, calls=20):
+    """Phase 16 (a): ``graft_entry.entry()``'s render on the card: finite,
+    K1 and K3 launched, within ENTRY_TOL of ``entry(device="cpu")``'s
+    ``fn`` (the plain versions) on the same arguments, bit-equal to itself
+    called again; the first call's ms and the median of ``calls``."""
+    from grendel_tpu_torch import graft_entry
+    from grendel_tpu_torch.models.gaussian_model import GaussianParams
+
+    fn, args = graft_entry.entry(dev)
+    for w in kernels_of.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: kernels_of[k].launches for k in ("K1", "K3")}
+    print(f"# entry: launches {launches}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of entry's render did not launch: {launches}")
+    require(out.shape == (3, 128, 160), f"entry image {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), "entry's image is not finite")
+    fn_cpu, _ = graft_entry.entry("cpu")
+    on_cpu = fn_cpu(GaussianParams(*(p.cpu() for p in args[0])),
+                    *(a.cpu() for a in args[1:]))
+    err = float((out.cpu() - on_cpu).abs().max())
+    require(err <= ENTRY_TOL, f"entry on the card against the CPU: {err}")
+    require(torch.equal(out, fn(*args)), "entry's render is not bit-equal "
+            "to itself called again")
+    walls = host_walls(lambda: fn(*args), calls)
+    print(f"# entry: (3, 128, 160) image mean {float(out.mean()):.6f}, card "
+          f"against the CPU's plain versions max abs err {err:.3e} (limit "
+          f"{ENTRY_TOL}), bit-equal called twice; first call {first_ms:.3f} "
+          f"ms, median {statistics.median(walls):.3f} ms (min "
+          f"{min(walls):.3f}, max {max(walls):.3f}) over {calls} calls "
+          f"{tag}")
+
+
+def dryrun_path(tag):
+    """Phase 16 (b) and (c): ``graft_entry.dryrun_multichip(1)``, one NCCL
+    rank on cuda:0 in a spawned process, every check of the dry run passing
+    and K1, K2, K2s and K3 launched in every step by the counts the rank
+    returns; then, where the machine has k >= 2 cards, the dry run over
+    each power of two k up to the count, with its parity against one
+    rank. The one rank's run draws the JAX package's random numbers
+    (utils/prng.py), so its final alive count is held to the JAX package's
+    one-device run of the same schedule (tests/data/graft_entry/
+    jax_dryrun2.json, its ``reference`` run) within the dry run's own
+    bound, max(2, 2%), and its densify rounds are printed beside JAX's."""
+    from grendel_tpu_torch import graft_entry
+
+    rec = graft_entry.dryrun_multichip(1, device="cuda")
+    with open(ROOT / "tests" / "data" / "graft_entry"
+              / "jax_dryrun2.json") as f:
+        jax_hist = json.load(f)["runs"]["reference"]["densify_history"]
+    fields = ("iter", "clone", "split", "prune", "alive")
+    mine = [tuple(h[k] for k in fields) for h in rec["densify_history"]]
+    theirs = [tuple(h[k] for k in fields) for h in jax_hist]
+    same = next((i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b),
+                len(theirs))
+    want = theirs[-1][-1]
+    print(f"# dry run, one NCCL rank: densify (iter, clone, split, prune, "
+          f"alive) {mine}; the JAX package's one-device run {theirs}; equal "
+          f"in the first {same} rounds")
+    require(len(mine) == len(theirs) and abs(rec["n_alive"] - want)
+            <= max(2, 0.02 * want), f"the dry run's one rank ends with "
+            f"n_alive {rec['n_alive']} after {len(mine)} rounds, the JAX "
+            f"package's one-device run {want} after {len(theirs)}")
+    steps = rec["launches"]
+    idle = [k for k in ("K1", "K2", "K2s", "K3")
+            if not steps or any(s[k] == 0 for s in steps)]
+    require(not idle, f"the dry run's rank did not launch {idle} in every "
+            f"step")
+    per_step = {k: sorted({s[k] for s in steps}) for k in steps[0]}
+    print(f"# dry run, one NCCL rank: {len(steps)} steps, launches per step "
+          f"{per_step}; device ms per step {rec['device_ms_per_step'][0]:.3f}"
+          f" ({rec['nccl_ms_per_step'][0]:.3f} of it NCCL's) over the last "
+          f"8; wall {rec['wall_s']:.1f} s with spawn, the scene and the "
+          f"resume {tag}")
+    count = torch.cuda.device_count()
+    sizes = [1 << k for k in range(1, 8) if (1 << k) <= count]
+    if not sizes:
+        print(f"# phase 16 (c) not run: this machine has {count} card, and "
+              f"the dry run takes one NCCL rank per card, so a run over "
+              f"k >= 2 ranks needs k cards")
+    for k in sizes:
+        multi = graft_entry.dryrun_multichip(k, device="cuda")
+        print(f"# dry run, {k} NCCL ranks: wall {multi['wall_s']:.1f} s, "
+              f"device ms per step by rank {multi['device_ms_per_step']} "
+              f"(NCCL's {multi['nccl_ms_per_step']}), ranks agree "
+              f"{multi['ranks_agree']} {tag}")
+
+
 def main(argv=None):
     import argparse
 
@@ -3488,6 +3598,11 @@ def main(argv=None):
     del struct_scene
     stamp(t_start, "images without PIL checked")
 
+    # --- 16. the graft entry points: entry() and the dry run ---------------
+    entry_path(dev, tag, kernels_of)
+    dryrun_path(tag)
+    stamp(t_start, "graft entry points checked")
+
     # --- 9. kernel timings -------------------------------------------------
     k1_ms = timer.ms(lambda: k1(*blend_in, **blend_kw), 20)
     k1_dev_ms = timer.device_ms(lambda: k1(*blend_in, **blend_kw), 20)
@@ -3572,9 +3687,12 @@ def main(argv=None):
     # ms: the clock of the kernels line, on which the card may wait for
     # the host to reach the launch; device_ms: the device's time alone.
     # launches: K1-K3 and K2s over the host training loop's steps, K4 and
-    # K5 over the microbenchmark's run; max_abs_err: the larger of the
-    # checks on the garden's inputs, on the last step of each host loop
-    # (phases 7, 11, 13 and 14), on the simulated distributed steps and on
+    # K5 over the microbenchmark's run (entry's render, phase 16 (a),
+    # launches K1 and K3 in every call, and the dry run, 16 (b), K1, K2,
+    # K2s and K3 in each of its 24 steps: both printed there);
+    # max_abs_err: the larger of the checks on the garden's inputs, on
+    # the last step of each host loop (phases 7, 11, 13 and 14), on the
+    # simulated distributed steps and on
     # the tools' inputs (phase 12: a render-tool batch, a profile_step
     # full_step and isect) (K1-K3; K2s in every check K2 has), and of the
     # microbenchmark's own check and the odd chunk count's (K4, K5)

@@ -8,7 +8,10 @@ the port on the same values. :func:`train_state_from_numpy` carries a whole
 training state the same way (parameters, Adam moments and count, densify
 statistics, iteration), so both packages can continue one mid-training
 state. :func:`scene_from_numpy` carries a scene (cameras, ground truth,
-point cloud, extent), so both packages can train on the same one. A model
+point cloud, extent), so both packages can train on the same one;
+:func:`scene_arrays` takes either package's scene to arrays and
+:func:`scene_from_arrays` back (to hand a scene to spawned ranks through
+an npz). A model
 on disk crosses through its PLY instead (engine/gaussian_io.py), a
 training state through its checkpoint (engine/checkpoint.py).
 """
@@ -128,3 +131,44 @@ def scene_from_numpy(train: dict, test: dict, points, colors,
         cameras_extent=float(extent),
         point_cloud=PointCloud(points=np.asarray(points, np.float32),
                                colors=np.asarray(colors, np.float32)))
+
+
+def cameras_to_numpy(cameras) -> dict:
+    """The inverse of :func:`cameras_from_numpy`: the arrays it takes, of
+    either package's cameras (both have the same fields and ``gt()``)."""
+    return dict(
+        world_view=np.stack([c.world_view for c in cameras]),
+        full_proj=np.stack([c.full_proj for c in cameras]),
+        camera_center=np.stack([c.camera_center for c in cameras]),
+        tanfov=np.array([[c.tanfovx, c.tanfovy] for c in cameras],
+                        np.float32),
+        uid=np.array([c.uid for c in cameras], np.int64),
+        gt_u8=np.stack([c.gt(cache=False) for c in cameras]))
+
+
+def scene_arrays(scene) -> dict:
+    """Either package's scene as one flat dict of numpy arrays (an npz's
+    contents, to hand it to spawned ranks): ``train_<key>`` and
+    ``test_<key>`` for :func:`cameras_to_numpy`'s arrays, ``points``,
+    ``colors`` and ``extent``. :func:`scene_from_arrays` reads it back."""
+    out = {}
+    for prefix, cameras in (("train_", scene.train_cameras),
+                            ("test_", scene.test_cameras)):
+        if cameras:
+            out.update({prefix + k: v for k, v in
+                        cameras_to_numpy(cameras).items()})
+    pcd = scene.point_cloud
+    return dict(out, points=np.asarray(pcd.points, np.float32),
+                colors=np.asarray(pcd.colors, np.float32),
+                extent=np.float64(scene.cameras_extent))
+
+
+def scene_from_arrays(arrays) -> NumpyScene:
+    """The scene of :func:`scene_arrays`'s dict, or of an npz of it (keys
+    other than the scene's are ignored)."""
+    def cams(prefix):
+        return {k[len(prefix):]: arrays[k] for k in arrays.keys()
+                if k.startswith(prefix)}
+
+    return scene_from_numpy(cams("train_"), cams("test_"), arrays["points"],
+                            arrays["colors"], float(arrays["extent"]))

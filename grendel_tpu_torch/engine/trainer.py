@@ -19,9 +19,10 @@ n0), 512)), the SH ramp min(it // 1000, sh_degree), the densify and
 opacity-reset schedule on the pre-increment iteration, the pre-grow ahead
 of a densify from the last measured growth ratio, growth when a densify
 dropped Gaussians or filled the capacity past the trigger (growth pads the
-densify statistics, it does not reset them), the densify noise seeded by
-seed * 1000003 + iteration, the exact-size last eval batch, the per-epoch
-loss log and the checkpoint's tuner state.
+densify statistics, it does not reset them), the densify noise drawn
+from the key seed * 1000003 + iteration by JAX's generator, the
+exact-size last eval batch, the per-epoch loss log and the checkpoint's
+tuner state.
 
 The tile-list entry capacity (per batch, ``RenderConfig.isect_capacity``
 per camera) starts at isect_capacity_factor x capacity and grows to
@@ -102,7 +103,7 @@ from ..models.densify import (SPLIT_N, DensifyStats, densify_and_prune,
 from ..models.gaussian_model import (GaussianParams, init_from_pcd,
                                      pad_to_capacity, round_capacity)
 from ..models.optimizer import AdamState, scaled_lrs
-from ..utils import hbm
+from ..utils import hbm, prng
 from ..utils.hbm import device_bytes_limit, entry_ceiling, mantissa_round_cap
 from ..utils.timer import End2endTimer, Timer, Tracer
 from .checkpoint import (load_checkpoint_sharded, load_tuner_state,
@@ -421,10 +422,9 @@ class Trainer:
 
     def _split_noise(self, seed: int) -> torch.Tensor:
         """The standard-normal split offsets of one densify, (capacity,
-        SPLIT_N, 3), from a generator seeded with ``seed``."""
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        return torch.randn((self.capacity, SPLIT_N, 3), generator=g,
-                           device=self.device)
+        SPLIT_N, 3): the JAX package's draw from the key ``seed``."""
+        return prng.normal(prng.key(seed), (self.capacity, SPLIT_N, 3),
+                           self.device)
 
     def _measured_step(self, cap: int, step):
         """``step()``; on the first step at each entry capacity ``cap`` and

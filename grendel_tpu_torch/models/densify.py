@@ -21,9 +21,9 @@ counted, so the host can grow the capacity. :func:`reset_opacity` clamps
 opacities to at most 0.01 and zeroes their Adam moments.
 
 The split noise is an argument: the JAX package draws it with
-``jax.random.normal(key, (n, 2, 3))``, which the port cannot reproduce, so
-the caller passes a standard-normal draw of that shape (the trainer from
-its own ``torch.Generator``, the parity tests JAX's draw).
+``jax.random.normal(key, (n, 2, 3))``, and the caller passes a
+standard-normal draw of that shape (the trainers the same draw, from
+utils/prng.py).
 """
 
 from __future__ import annotations

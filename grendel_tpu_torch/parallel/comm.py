@@ -5,7 +5,9 @@ The JAX package's step calls ``lax`` collectives inside ``shard_map``;
 this is their counterpart for one process per device:
 
   * :func:`init_group`: NCCL for a ``cuda`` device, gloo for the CPU
-    (:func:`destroy_group` leaves it);
+    (:func:`destroy_group` leaves it); for the ranks of one machine,
+    :func:`spawn_local` starts them, :func:`free_port` finds their
+    rendezvous and :func:`join_local` joins each to the group;
   * :func:`all_to_all`: the sparse exchange, differentiable (its backward
     is the same exchange of the gradient);
   * :func:`all_reduce_sum`, :func:`all_reduce_max` and
@@ -20,7 +22,9 @@ collectives by the order in which they are called.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+import socket
+import time
+from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -51,6 +55,52 @@ def destroy_group() -> None:
     """Leave the default process group."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A free TCP port of 127.0.0.1, for the ranks' rendezvous."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def join_local(rank: int, world: int, port: int, device) -> torch.device:
+    """Join, as ``rank``, a group of ``world`` ranks of this machine that
+    meet at 127.0.0.1:``port``: NCCL with rank r on ``cuda:r`` for a
+    ``cuda`` device, gloo on one thread for the CPU. Returns the rank's
+    device."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    if torch.device(device).type == "cuda":
+        dev = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(1)
+        dev = torch.device("cpu")
+    init_group(dev)
+    return dev
+
+
+def spawn_local(fn: Callable, args: tuple, nprocs: int, timeout: float,
+                what: str) -> None:
+    """Run ``fn(rank, *args)`` in ``nprocs`` spawned processes and join
+    them. A rank's exception raises here with its traceback; a run past
+    ``timeout`` seconds (a hung collective) raises ``TimeoutError`` naming
+    ``what``; no process outlives the call."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.time() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
+            if time.time() > deadline:
+                raise TimeoutError(f"{what} ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join()
 
 
 def _exchange(x: torch.Tensor) -> torch.Tensor:

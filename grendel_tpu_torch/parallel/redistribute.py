@@ -21,12 +21,12 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..models.gaussian_model import GaussianParams
 from ..models.optimizer import AdamState
+from ..utils import prng
 from . import comm
 
 I32 = torch.int32
@@ -34,12 +34,12 @@ I32 = torch.int32
 
 def destinations(alive: torch.Tensor, rank: int, world: int,
                  seed: int) -> torch.Tensor:
-    """(n,) int32 destination rank of each slot: uniform over the ranks
-    from a generator seeded with ``seed``; ``world`` (stay) for a dead
-    slot and for a slot that drew its own rank."""
-    gen = torch.Generator(device=alive.device).manual_seed(seed)
-    dest = torch.randint(0, world, alive.shape, generator=gen,
-                         device=alive.device, dtype=I32)
+    """(n,) int32 destination rank of each slot: uniform over the ranks,
+    the JAX package's draw ``jax.random.randint(fold_in(key(seed), rank),
+    (n,), 0, world)`` (utils/prng.py); ``world`` (stay) for a dead slot
+    and for a slot that drew its own rank."""
+    dest = prng.randint(prng.fold_in(prng.key(seed), rank), alive.shape,
+                        world, alive.device)
     stay = ~alive | (dest == rank)
     return torch.where(stay, torch.full_like(dest, world), dest)
 
@@ -122,15 +122,14 @@ def place(rows: torch.Tensor, alive: torch.Tensor, sent: torch.Tensor,
 
 def redistribute(params: GaussianParams, alive: torch.Tensor,
                  adam: AdamState, iteration: int, send_cap: int):
-    """One round on this rank of the default process group, with
-    destinations seeded from (``iteration``, rank). Returns (params,
-    alive, adam, info (D, 3) int32 [n_sent, send_overflow, recv_dropped]
-    of every rank, the same on every rank)."""
+    """One round on this rank of the default process group, with the
+    destinations of JAX's key ``iteration`` folded with the rank. Returns
+    (params, alive, adam, info (D, 3) int32 [n_sent, send_overflow,
+    recv_dropped] of every rank, the same on every rank)."""
     rank, world = dist.get_rank(), dist.get_world_size()
-    seed = int(np.random.SeedSequence([iteration, rank]).generate_state(1)[0])
     rows = flatten(params, adam)
     buckets, sent, n_sent, overflow = pack(
-        rows, destinations(alive, rank, world, seed), world, send_cap)
+        rows, destinations(alive, rank, world, iteration), world, send_cap)
     rows, alive, dropped = place(rows, alive, sent, exchange(buckets))
     params, adam = unflatten(rows, params, adam)
     info = comm.all_gather(torch.stack([n_sent, overflow, dropped]).to(I32))

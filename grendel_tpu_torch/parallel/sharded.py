@@ -56,6 +56,7 @@ from ..ops.isect import (compact_entries_blocked, compact_entries_flat,
 from ..ops.projection import ProjectedSplats, project_gaussians_batched
 from ..ops.rasterize_cuda import rasterize_slots_fwd
 from ..ops.ssim import ssim_map
+from ..utils import prng
 from . import comm
 
 PAYLOAD_F = 9   # means2d(2) + conic(3) + rgb(3) + opacity(1)
@@ -586,24 +587,27 @@ class DistributedTrainer:
     def densify(self, state: TrainState, seed: int, grad_threshold: float,
                 min_opacity: float, extent: float, percent_dense: float,
                 use_size_prune: bool):
-        """Densify and prune each shard on its own. The split noise comes
-        from a generator seeded with ``seed``, mixed with the rank when the
-        Gaussians are sharded (the replicated copies must stay equal).
-        Returns (state, info (D, 5) int32: cloned, split, pruned, dropped,
-        alive of each rank), with no readback."""
-        if not self.replicated:
-            seed = int(np.random.SeedSequence([seed, self.rank])
-                       .generate_state(1)[0])
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        noise = torch.randn((state.alive.shape[0], SPLIT_N, 3), generator=gen,
-                            device=self.device)
+        """Densify and prune each shard on its own, with the split noise
+        of :meth:`split_noise`. Returns (state, info (D, 5) int32: cloned,
+        split, pruned, dropped, alive of each rank), with no readback."""
         params, alive, adam, stats, info = densify_and_prune(
-            state.params, state.alive, state.adam, state.stats, noise,
+            state.params, state.alive, state.adam, state.stats,
+            self.split_noise(seed, state.alive.shape[0]),
             grad_threshold, min_opacity, extent, percent_dense,
             use_size_prune)
         info_all = comm.all_gather(info.to(I32))
         return (TrainState(params, alive, adam, stats, state.iteration),
                 info_all)
+
+    def split_noise(self, seed: int, n: int) -> torch.Tensor:
+        """The standard-normal split offsets of one densify, (n, SPLIT_N,
+        3): the JAX package's draw from the key ``seed``, folded with the
+        rank when the Gaussians are sharded (the replicated copies must
+        stay equal)."""
+        key = prng.key(seed)
+        if not self.replicated:
+            key = prng.fold_in(key, self.rank)
+        return prng.normal(key, (n, SPLIT_N, 3), self.device)
 
     def reset_opacity(self, state: TrainState) -> TrainState:
         params, adam = reset_opacity(state.params, state.adam)

@@ -84,6 +84,27 @@ def random_gaussians(seed: int, n: int, extent: float = 1.5,
     return f32(means), f32(scales), f32(quats), f32(opac), f32(sh)
 
 
+def jax_random_gaussians(seed: int, n: int, extent: float = 1.5,
+                         sh_degree: int = 3, scale_range=(-4.5, -2.5),
+                         opacity_range=(0.3, 0.95)):
+    """The JAX package's ``random_gaussians(jax.random.PRNGKey(seed),
+    ...)``, drawn with utils/prng.py: :func:`random_gaussians`'s arrays,
+    with the JAX package's draws (the uniforms bit for bit, the normals to
+    a few ulp, the scales through float32 ``exp``)."""
+    from .utils import prng
+
+    ks = [prng.fold_in(prng.key(seed), i) for i in range(6)]
+    k_sh = (sh_degree + 1) ** 2
+    means = prng.uniform(ks[0], (n, 3), -extent, extent, "cpu")
+    scales = torch.exp(prng.uniform(ks[1], (n, 3), *scale_range, "cpu"))
+    quats = prng.normal(ks[2], (n, 4), "cpu")
+    opac = prng.uniform(ks[3], (n,), *opacity_range, "cpu")
+    sh = torch.zeros((n, k_sh, 3))
+    sh[:, 0, :] = rgb_to_sh(prng.uniform(ks[4], (n, 3), 0.1, 0.9, "cpu"))
+    sh[:, 1:, :] = 0.05 * prng.normal(ks[5], (n, k_sh - 1, 3), "cpu")
+    return tuple(x.numpy() for x in (means, scales, quats, opac, sh))
+
+
 def params_fields(means, scales, quats, opac, sh, capacity: int):
     """Raw GaussianParams fields (numpy) of activated Gaussians padded to
     ``capacity``, and the alive mask; the same padding as the JAX
@@ -339,7 +360,9 @@ class SyntheticScene:
     """A random Gaussian scene rendered to its ground truth, in
     ``Scene``'s duck type (train_cameras, test_cameras, cameras_extent,
     point_cloud); the scene of ``--synthetic`` training. The Gaussians come
-    from :func:`random_gaussians` (numpy), the ground truth from
+    from :func:`jax_random_gaussians`, so the scene is the JAX package's
+    of the same seed (its ground truth up to a rounding here and there),
+    the ground truth from
     ``render_image`` on ``device`` with 16x16 tiles, an entry capacity of
     1 << 15 and a black background; ``n_cams + n_test`` cameras on a circle.
     The initial point cloud is noisy samples of the true means."""
@@ -351,7 +374,7 @@ class SyntheticScene:
         from .convert import params_from_numpy
 
         dev = resolve_device(device)
-        g = random_gaussians(seed, n_gaussians, sh_degree=sh_degree)
+        g = jax_random_gaussians(seed, n_gaussians, sh_degree=sh_degree)
         params, alive = params_from_numpy(
             *params_fields(*g, round_capacity(n_gaussians, 256)), dev)
         cfg = RenderConfig(img_h=height, img_w=width, isect_capacity=1 << 15,
@@ -708,10 +731,7 @@ def gloo_worker(rank: int, world: int, port: int, spec_path: str,
     from .parallel.division import pack_gt_rows
     from .parallel.sharded import DistributedTrainer, ParallelConfig
 
-    torch.set_num_threads(1)
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE=str(world))
-    comm.init_group("cpu")
+    comm.join_local(rank, world, port, "cpu")
     try:
         z = np.load(spec_path)
         spec = json.loads(str(z["spec"]))
@@ -772,9 +792,9 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
     (engine/trainer_dist.py ``MultiRankTrainer``), for the
     multi-rank loop's tests (start with ``torch.multiprocessing``).
 
-    ``spec_path`` is an npz: the scene (``train_*`` and ``test_*`` camera
-    arrays as convert.cameras_from_numpy takes them, ``points``,
-    ``colors``, ``extent``) and a JSON ``spec`` string: ``config``, the
+    ``spec_path`` is an npz: the scene (convert.scene_arrays's arrays:
+    ``train_*`` and ``test_*`` cameras, ``points``, ``colors``,
+    ``extent``) and a JSON ``spec`` string: ``config``, the
     TrainConfig overrides (:func:`apply_config`; the model path is
     ``out_dir``), and optionally ``memory_fraction`` ({rank: share} that
     replaces the rank's device memory share), ``hbm_gb`` (the device
@@ -789,26 +809,18 @@ def trainer_worker(rank: int, world: int, port: int, spec_path: str,
     import os
 
     from .config import TrainConfig
-    from .convert import scene_from_numpy
+    from .convert import scene_from_arrays
     from .engine.trainer_dist import MultiRankTrainer
     from .parallel import comm
 
-    torch.set_num_threads(1)
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE=str(world))
-    comm.init_group("cpu")
+    comm.join_local(rank, world, port, "cpu")
     try:
         z = np.load(spec_path)
         spec = json.loads(str(z["spec"]))
         if "hbm_gb" in spec:
             os.environ["GRENDEL_HBM_GB"] = str(spec["hbm_gb"])
 
-        def cams(prefix):
-            return {k[len(prefix):]: z[k] for k in z.files
-                    if k.startswith(prefix)}
-
-        scene = scene_from_numpy(cams("train_"), cams("test_"), z["points"],
-                                 z["colors"], float(z["extent"]))
+        scene = scene_from_arrays(z)
         cfg = apply_config(TrainConfig(), dict(
             spec["config"], model=dict(spec["config"].get("model", {}),
                                        model_path=out_dir)))
@@ -883,10 +895,7 @@ def storage_worker(rank: int, world: int, port: int, spec_path: str,
     from .parallel import comm
     from .scripts.train import make_decode_mask
 
-    torch.set_num_threads(1)
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE=str(world))
-    comm.init_group("cpu")
+    comm.join_local(rank, world, port, "cpu")
     try:
         with open(spec_path) as f:
             spec = json.load(f)

@@ -37,7 +37,6 @@ tolerances for the loss, l1, ssim, Adam moments and grad_accum.
 """
 
 import json
-import socket
 
 import numpy as np
 import jax
@@ -60,6 +59,7 @@ from grendel_tpu_torch.cameras import batch_camera_arrays
 from grendel_tpu_torch.convert import params_from_numpy
 from grendel_tpu_torch.engine.render import RenderConfig, render_batch
 from grendel_tpu_torch.models.gaussian_model import GaussianParams
+from grendel_tpu_torch.parallel import comm
 from grendel_tpu_torch.parallel.division import divide_rows
 
 D, H, W, CAP, N_LIVE, BSZ, SH = 2, 64, 48, 256, 200, 2, 1
@@ -150,9 +150,7 @@ def _jax_runs(scene, eight_devices):
 
 def _port_runs(scene, tmp_path, thresholds):
     """DistributedTrainer in 2 spawned gloo processes, both modes."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = comm.free_port()
     spec = dict(parallel=PARALLEL, sh_degree=SH, lambda_dssim=0.2,
                 lrs=scene["lrs"]._asdict(), xyz_sched=scene["sched"],
                 densify={mode: dict(DENSIFY, extent=scene["extent"],
@@ -364,8 +362,6 @@ def test_inside_camera_simulation_matches_jax(scene, eight_devices):
 def world_of_one():
     """A gloo group of one rank in this process."""
     import torch.distributed as dist
-
-    from grendel_tpu_torch.parallel import comm
 
     comm.init_group("cpu", rank=0, world_size=1, store=dist.HashStore())
     yield

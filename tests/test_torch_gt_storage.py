@@ -14,15 +14,12 @@ must train bit-equal to the same loop with the dataset preloaded.
 
 import json
 import os
-import socket
 import sys
-import time
 import types
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp
 
 from grendel_tpu import cameras as JCAM
 from grendel_tpu.data import readers as JR
@@ -34,6 +31,7 @@ from grendel_tpu_torch.config import TrainConfig
 from grendel_tpu_torch.data import readers as TR
 from grendel_tpu_torch.data import scene as TS
 from grendel_tpu_torch.engine.trainer import Trainer
+from grendel_tpu_torch.parallel import comm
 from grendel_tpu_torch.parallel.division import pack_gt_rows as t_pack
 from grendel_tpu_torch.scripts import train as t_train
 
@@ -303,21 +301,9 @@ def test_two_ranks_storage_host_path_and_preload(dataset, tmp_path):
     path = os.path.join(tmp_path, "spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    ctx = tmp.start_processes(testing.storage_worker,
-                              args=(world, port, path, str(tmp_path)),
-                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.time() + 120.0
-    try:
-        while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
-            if time.time() > deadline:
-                raise TimeoutError("the ranks ran past 120 s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
+    comm.spawn_local(testing.storage_worker,
+                     (world, comm.free_port(), path, str(tmp_path)), world,
+                     120.0, "the ranks")
     ranks = [np.load(os.path.join(tmp_path, f"rank{r}.npz"))
              for r in range(world)]
     full = JS.Scene(dataset, eval_split=True, llffhold=HOLD)

@@ -78,8 +78,7 @@ def test_render_cli_matches_jax(tmp_path, monkeypatch):
             assert got[fn].mean() > 5          # not an empty render
         padded = _pngs(runs["port_bsz2"], split)
         assert all(np.array_equal(padded[fn], got[fn]) for fn in got)
-    # the ground truth of the port's scene (the JAX package draws its
-    # random scene from other bits), bit for bit
+    # the ground truth of the port's scene, bit for bit
     scene = testing.SyntheticScene(width=64, height=48, sh_degree=1, seed=0,
                                    n_gaussians=100, n_init_points=50,
                                    device="cpu")

@@ -75,16 +75,6 @@ def _schedule(cfg, model_path):
     return cfg.finalize()
 
 
-def _camera_arrays(cams):
-    return dict(
-        world_view=np.stack([c.world_view for c in cams]),
-        full_proj=np.stack([c.full_proj for c in cams]),
-        camera_center=np.stack([c.camera_center for c in cams]),
-        tanfov=np.array([[c.tanfovx, c.tanfovy] for c in cams], np.float32),
-        uid=np.array([c.uid for c in cams]),
-        gt_u8=np.stack([c.gt_image_u8 for c in cams]))
-
-
 def _tap_jax(trainer):
     """__graft_entry__.py's tap: every step's (loss, l1)."""
     losses = []
@@ -134,10 +124,7 @@ def _jax_noise(trainer):
 def runs(tmp_path_factory):
     jscene = JScene(n_cams=6, n_test=2, width=64, height=48, n_gaussians=120,
                     n_init_points=100, sh_degree=1, seed=3)
-    tscene = convert.scene_from_numpy(
-        _camera_arrays(jscene.train_cameras),
-        _camera_arrays(jscene.test_cameras), jscene.point_cloud.points,
-        jscene.point_cloud.colors, jscene.cameras_extent)
+    tscene = convert.scene_from_arrays(convert.scene_arrays(jscene))
 
     jt = JTrainer(_schedule(JConfig(), str(tmp_path_factory.mktemp("jax"))),
                   jscene, devices=jax.devices()[:1])

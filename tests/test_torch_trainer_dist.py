@@ -34,13 +34,10 @@ parallel/division.py ``pack_gt_rows``.
 import dataclasses
 import json
 import os
-import socket
-import time
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp
 
 from grendel_tpu.config import TrainConfig as JConfig
 from grendel_tpu.engine.trainer import Trainer as JTrainer
@@ -50,6 +47,7 @@ from grendel_tpu_torch.config import TrainConfig
 from grendel_tpu_torch.engine.checkpoint import (checkpoint_name,
                                                  find_latest_checkpoint)
 from grendel_tpu_torch.engine.trainer import Trainer
+from grendel_tpu_torch.parallel import comm
 from grendel_tpu_torch.parallel.division import pack_gt_rows
 
 D = 2
@@ -74,26 +72,13 @@ def _single_torch_thread():
     torch.set_num_threads(n)
 
 
-def camera_arrays(cams, prefix=""):
-    return {prefix + k: v for k, v in dict(
-        world_view=np.stack([c.world_view for c in cams]),
-        full_proj=np.stack([c.full_proj for c in cams]),
-        camera_center=np.stack([c.camera_center for c in cams]),
-        tanfov=np.array([[c.tanfovx, c.tanfovy] for c in cams], np.float32),
-        uid=np.array([c.uid for c in cams]),
-        gt_u8=np.stack([c.gt_image_u8 for c in cams])).items()}
-
-
 def jax_scene():
     return JScene(n_cams=6, n_test=2, width=64, height=48, n_gaussians=120,
                   n_init_points=100, sh_degree=1, seed=3)
 
 
 def port_scene(jscene):
-    return convert.scene_from_numpy(
-        camera_arrays(jscene.train_cameras),
-        camera_arrays(jscene.test_cameras), jscene.point_cloud.points,
-        jscene.point_cloud.colors, jscene.cameras_extent)
+    return convert.scene_from_arrays(convert.scene_arrays(jscene))
 
 
 def jax_config(overrides, model_path, d_count=D):
@@ -134,28 +119,11 @@ def run_ranks(jscene, spec, out_dir, world=D, timeout=240.0):
     """The port's loop on ``world`` spawned gloo ranks; fails if any rank
     fails or the run outlasts ``timeout`` seconds. Returns each rank's
     losses and records."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     path = os.path.join(out_dir, "spec.npz")
-    np.savez(path, spec=json.dumps(spec),
-             points=jscene.point_cloud.points,
-             colors=jscene.point_cloud.colors,
-             extent=jscene.cameras_extent,
-             **camera_arrays(jscene.train_cameras, "train_"),
-             **camera_arrays(jscene.test_cameras, "test_"))
-    ctx = tmp.start_processes(testing.trainer_worker,
-                              args=(world, port, path, out_dir),
-                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.time() + timeout
-    try:
-        while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
-            if time.time() > deadline:
-                raise TimeoutError(f"the ranks ran past {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
+    np.savez(path, spec=json.dumps(spec), **convert.scene_arrays(jscene))
+    comm.spawn_local(testing.trainer_worker,
+                     (world, comm.free_port(), path, out_dir), world,
+                     timeout, "the ranks")
     out = []
     for r in range(world):
         z = np.load(os.path.join(out_dir, f"rank{r}.npz"))
