@@ -8,6 +8,8 @@ Phases, each of which fails the run:
   1. print the card (nvidia-smi name and power limit) and the versions;
   2. build the port's CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build time and the compiler's register report;
+     count the resize kernel's launches a call under the profiler (one)
+     at phase 15 (a)'s two timed shapes;
   3. scan kernel K3 bit-equal to torch.cumsum (its plain version): at
      lengths 0, 1 and around one and three tiles for 1, 4 and 8
      channels, at the main path's shapes and at odd lengths, over 1,000
@@ -169,10 +171,13 @@ Phases, each of which fails the run:
      1,600 views preloaded: a peak higher by at least the bank; each
      run's entry ceiling printed;
   15. images without PIL: (a) the resize kernel (csrc/resize.cu, PIL's
-     bilinear resize) bit-equal to its plain version on five shapes (the
-     truck view 1957x1091 -> 1600x891 RGB, an upscale, grey, RGBA, a ratio
-     that is no simple fraction), timed beside its plain version, its
-     bound and F.interpolate (bilinear, antialias); (b) the committed JPEG
+     bilinear resize in one launch) bit-equal to its plain version on
+     seven shapes (the truck view 1957x1091 -> 1600x891 RGB, an upscale,
+     grey, RGBA, a ratio that is no simple fraction, a full-size Mip-NeRF
+     360 view 5187x3361 -> 1600x1037 and a downscale by 8), timed beside
+     its bound, F.interpolate (bilinear, antialias) and a copy of its
+     input at the truck's and the Mip-NeRF 360 view's shapes, beside its
+     plain version at the truck's; (b) the committed JPEG
      fixtures of tests/data/jpeg decoded by native/jpeg_decode.c on this
      host bit-equal to PIL's decodes committed beside them; (c) the truck
      configuration (examples/train_truck_1k/train_truck_1k.sh): the
@@ -209,6 +214,13 @@ Phases, each of which fails the run:
      wall seconds; (c) where the machine has 2 or more cards, the dry run
      over each power of two up to the count, with its parity against one
      rank; on one card a line says that (c) did not run and why;
+  17. the random background (run after phase 12, on phase 7's trainer):
+     5 steps without ``random_background`` and 5 with it under torch's
+     sync debug mode, then 3 of each under the profiler: every background
+     bit-equal to utils/prng.py's CPU draw of JAX's at its iteration, the
+     synchronizing calls a step equal with and without the flag; the
+     launches and device ms a step of each, and the launches and host
+     time of ``DistributedTrainer.step``'s own draw on the card;
   9. timings: render_batch and train_step (host clock, median of 20 after
      2 warm-ups, taken between phases 6 and 7; the step again after phase
      8), a profiler breakdown of each with the step's device time, and
@@ -301,7 +313,16 @@ RESIZE_CHECKS = (
     ("RGBA, 1957x1091 -> 1600x891", (1091, 1957, 4), (1600, 891)),
     ("a non-integer ratio, 1957x1091 -> 1237x703 RGB", (1091, 1957, 3),
      (1237, 703)),
+    ("a full-size Mip-NeRF 360 view, 5187x3361 -> 1600x1037 RGB",
+     (3361, 5187, 3), (1600, 1037)),
+    ("a downscale by 8, 1600x896 -> 200x112 RGB", (896, 1600, 3),
+     (200, 112)),
 )
+# the shapes the resize is timed at: the truck view (the kernels line's
+# ms, device_ms and bound_ms) and the full-size Mip-NeRF 360 view
+# (examples/mip360_4k/4k.sh's images under the -r -1 rule, the keys with
+# _mip360)
+RESIZE_TIMED = (RESIZE_CHECKS[0], RESIZE_CHECKS[5])
 FIXTURE_DIR = ROOT / "tests" / "data" / "jpeg"
 TRUCK_SIZE, TRUCK_CAMS, TRUCK_HOLD, TRUCK_BSZ = (1957, 1091), 10, 8, 8
 TRUCK_ITERS, TRUCK_POINTS, TRUCK_RESOLUTION = 300, 100_000, -1
@@ -1085,6 +1106,92 @@ def train_loop(trainer, tag, kernels_of, iterations, what, calls=None):
     print(f"# {what}: {rec['syncs']:.1f} synchronizing calls per step over 5 "
           f"steps (torch.cuda sync debug mode), by site: {dict(sites)}")
     return rec
+
+
+def background_path(trainer, tag, steps=5):
+    """Phase 17: ``--random_background`` on phase 7's trainer: ``steps``
+    steps with the flag off, then ``steps`` with it on, each step (the
+    loop's ``_train_step``: batch, background, ground truth, the step and
+    the previous step's entry count) under torch's sync debug mode, then 3
+    of each under the profiler. Every background a step used with the
+    flag must equal ``utils/prng.py``'s CPU draw at its iteration (JAX's
+    ``uniform(fold_in(key(seed), it), (3,))``) bit for bit, and the
+    synchronizing calls a step must be the same with and without it (the
+    loop's own reads between steps follow its log and epoch schedule, not
+    the flag). Also times ``DistributedTrainer.step``'s own draw (from the
+    iteration tensor, on the card) for its launches and host time."""
+    import collections
+
+    from grendel_tpu_torch.utils import prng
+
+    opt, seed = trainer.cfg.opt, trainer.cfg.seed
+    real_train_step, real_step = trainer._train_step, trainer._step
+    its, used, counting = [], [], [True]
+    step_sites = collections.Counter()
+
+    def train_step(it, sh_degree):
+        its.append(it)
+        if not counting[0]:
+            return real_train_step(it, sh_degree)
+        out = []
+        step_sites.update(sync_sites(
+            lambda: out.append(real_train_step(it, sh_degree))))
+        return out[0]
+
+    def step(cams, gt, bg, sh_degree):
+        used.append(bg)
+        return real_step(cams, gt, bg, sh_degree)
+
+    trainer._train_step, trainer._step = train_step, step
+    syncs, prof = {}, {}
+    try:
+        for flag in (False, True):
+            opt.random_background = flag
+            its.clear()
+            used.clear()
+            step_sites.clear()
+            counting[0] = True
+            trainer.train(int(trainer.state.iteration) + steps * BSZ)
+            syncs[flag] = (sum(step_sites.values()) / steps, dict(step_sites))
+            if flag:
+                drawn = list(zip(its, used))
+            counting[0] = False
+            end = int(trainer.state.iteration) + 3 * BSZ
+            prof[flag] = profile(lambda: trainer.train(end), 1, top=0)
+    finally:
+        opt.random_background = False
+        trainer._train_step, trainer._step = real_train_step, real_step
+    require(len(drawn) == steps, f"the random background run took "
+            f"{len(drawn)} steps, not {steps}")
+    for it, bg in drawn:
+        want = prng.uniform(prng.fold_in(prng.key(seed), it), (3,), 0.0,
+                            1.0, "cpu")
+        require(bg.dtype == torch.float32 and torch.equal(bg.cpu(), want),
+                f"the background at iteration {it} is {bg.tolist()}, not "
+                f"JAX's draw {want.tolist()}")
+    require(syncs[True][0] == syncs[False][0],
+            f"--random_background changed the synchronizing calls a step: "
+            f"{syncs[True]} with it, {syncs[False]} without")
+    launches = {f: sum(n for _, n, _ in prof[f][1]) / 3 for f in prof}
+    state_it = trainer.state.iteration
+
+    def draw():
+        return prng.uniform(prng.fold_in(prng.key(seed), state_it), (3,),
+                            0.0, 1.0, state_it.device)
+
+    draw_us = host_us(draw, 50)
+    _, draw_rows = profile(draw, 5, top=0)
+    print(f"# random background: {steps} steps at iterations "
+          f"{drawn[0][0]}-{drawn[-1][0]}, every background bit-equal to "
+          f"prng's CPU draw; {syncs[True][0]:.1f} synchronizing calls a "
+          f"step with it, {syncs[False][0]:.1f} without; launches a step "
+          f"{launches[True]:.1f} with it, {launches[False]:.1f} without "
+          f"(profiler, 3 steps); "
+          f"device ms a step {prof[True][0] / 3:.3f} with it, "
+          f"{prof[False][0] / 3:.3f} without; DistributedTrainer's own draw "
+          f"from the iteration tensor: {sum(n for _, n, _ in draw_rows):.0f} "
+          f"launches, {draw_us:.1f} us of host a draw {tag}")
+    return dict(syncs=syncs, launches=launches)
 
 
 def resume_check(trainer, dev, what):
@@ -2758,18 +2865,42 @@ def kernel_launches(rows):
                             ("K2s", "segment_sum_kernel"), ("K3", "scan"))}
 
 
-def resize_path(dev, timer, tag, gen):
+def resize_launches(dev, gen):
+    """The resize kernel's launches a call under the profiler at each
+    shape of ``RESIZE_TIMED``: exactly one ``resize_fused`` and nothing
+    else. Run early in the process (phase 2): in a profile taken after
+    phase 14 the profiler has reported no device activity at all for
+    this call. Returns the launches a call."""
+    from grendel_tpu_torch.ops.resize import resize_bilinear
+
+    for what, shape, size in RESIZE_TIMED:
+        img = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                            generator=gen)
+        resize_bilinear(img, size)
+        _, rows = profile(lambda: resize_bilinear(img, size), 5, top=3)
+        fused = sum(n for _, n, key in rows if "resize_fused" in key)
+        require(fused == 1 and sum(n for _, n, _ in rows) == 1,
+                f"the resize launched {rows} a call on {what}: one "
+                f"resize_fused launch expected")
+    return 1
+
+
+def resize_path(dev, timer, tag, gen, per_call):
     """Phase 15 (a): the resize kernel bit-equal to its plain version on
     each of ``RESIZE_CHECKS`` (random bytes; RGBA with transparent, opaque
-    and partial alpha), then timed on the truck view's shape beside its
-    plain version, its bound and ``F.interpolate`` (bilinear with
-    antialias, a near and not an equal function, on float32). Returns the
-    kernels line's row (without launches), its ``max_abs_err`` the largest
-    difference in levels measured over the five shapes."""
+    and partial alpha), then, at each shape of ``RESIZE_TIMED``, its time
+    beside its bound, ``F.interpolate`` (bilinear with antialias, a near
+    and not an equal function, on float32) and a copy of its input; the
+    plain version's at the truck's shape. ``per_call`` is
+    :func:`resize_launches`'s count. Returns the kernels line's row
+    (without launches), its ``max_abs_err`` the largest difference in
+    levels measured over the shapes, the Mip-NeRF 360 view's numbers
+    under keys ending in ``_mip360``."""
     import torch.nn.functional as F
 
     from grendel_tpu_torch.ops.resize import (coefficients, resize_bilinear,
-                                              resize_bilinear_plain)
+                                              resize_bilinear_plain,
+                                              tile_plan)
 
     alphas = torch.tensor([0, 255, 1, 77, 128, 254], dtype=torch.uint8,
                           device=dev)
@@ -2792,36 +2923,58 @@ def resize_path(dev, timer, tag, gen):
           f"{len(RESIZE_CHECKS)} shapes (largest difference {max(errs)} "
           f"levels): " + "; ".join(w for w, _, _ in RESIZE_CHECKS))
 
-    _, shape, size = RESIZE_CHECKS[0]
-    img = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
-                        generator=gen)
-    (w, h), (in_h, in_w, c) = size, shape
-    row = {
-        "max_abs_err": max(errs),
-        "ms": timer.ms(lambda: resize_bilinear(img, size), 20),
-        "device_ms": timer.device_ms(lambda: resize_bilinear(img, size), 20),
-        "plain_ms": timer.ms(lambda: resize_bilinear_plain(img, size), 3),
-    }
-    f32 = img.permute(2, 0, 1)[None].float()
-    row["library_ms"] = timer.ms(lambda: F.interpolate(
-        f32, size=(h, w), mode="bilinear", align_corners=False,
-        antialias=True), 20)
-    # bytes: the input read once, the output written once; operations: a
-    # multiply and an add a tap of each output byte of each pass
-    n_bytes = in_h * in_w * c + h * w * c
-    taps_x = int(coefficients(in_w, w)[0][:, 1].sum())
-    taps_y = int(coefficients(in_h, h)[0][:, 1].sum())
-    n_ops = 2 * c * (in_h * taps_x + w * taps_y)
-    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / INT32_OPS_PER_S
-    row["bound_ms"] = max(bytes_ms, ops_ms)
-    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"# resize kernel {in_w}x{in_h} -> {w}x{h} RGB: {row['ms']:.4f} ms "
-          f"(device alone {row['device_ms']:.4f} ms), plain "
-          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}: {n_bytes} bytes, {n_ops} int32 operations "
-          f"{ops_ms:.4f} ms), F.interpolate(bilinear, antialias) on float32 "
-          f"{row['library_ms']:.4f} ms {tag}")
+    row = {"max_abs_err": max(errs)}
+    for what, shape, size in RESIZE_TIMED:
+        truck = what == RESIZE_TIMED[0][0]
+        img = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                            generator=gen)
+        (w, h), (in_h, in_w, c) = size, shape
+        plan = tile_plan(in_h, in_w, h, w, c)
+        f32 = img.permute(2, 0, 1)[None].float()
+        copy = torch.empty_like(img)
+        r = {
+            "ms": timer.ms(lambda: resize_bilinear(img, size), 20),
+            "device_ms": timer.device_ms(lambda: resize_bilinear(img, size),
+                                         20),
+            "library_ms": timer.ms(lambda: F.interpolate(
+                f32, size=(h, w), mode="bilinear", align_corners=False,
+                antialias=True), 20),
+            # a yardstick for the input's load: torch's copy of the input
+            # (each byte read and written once), on the device's clock
+            "copy_ms": timer.device_ms(lambda: copy.copy_(img), 20),
+        }
+        if truck:
+            r["plain_ms"] = timer.ms(
+                lambda: resize_bilinear_plain(img, size), 3)
+        # bytes: the input read once, the output written once; operations:
+        # a multiply and an add a tap of each output byte of each pass
+        n_bytes = in_h * in_w * c + h * w * c
+        taps_x = int(coefficients(in_w, w)[0][:, 1].sum())
+        taps_y = int(coefficients(in_h, h)[0][:, 1].sum())
+        n_ops = 2 * c * (in_h * taps_x + w * taps_y)
+        bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * n_ops / INT32_OPS_PER_S
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"# resize kernel {in_w}x{in_h} -> {w}x{h} RGB: {r['ms']:.4f} "
+              f"ms (device alone {r['device_ms']:.4f} ms), "
+              + (f"plain {r['plain_ms']:.3f} ms, " if "plain_ms" in r else "")
+              + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {n_bytes} "
+              f"bytes, {n_ops} int32 operations {ops_ms:.4f} ms), "
+              f"{r['bound_ms'] / r['device_ms']:.1%} of the bound on the "
+              f"device's clock; F.interpolate(bilinear, antialias) on "
+              f"float32 {r['library_ms']:.4f} ms; copy_ of the input "
+              f"{r['copy_ms']:.4f} ms (device); {per_call} launch a call "
+              f"(profiler, phase 2); tiles {plan.tile_w}x{plan.tile_h} on a "
+              f"{plan.grid[0]}x{plan.grid[1]} grid, {plan.rows} input rows "
+              f"a tile for {plan.tile_h} output rows, {plan.smem} shared "
+              f"bytes a block {tag}")
+        if truck:
+            row.update(r)
+        else:
+            row.update({f"{k}_mip360": v for k, v in r.items()
+                        if k != "bound_by"})
+    row["launches_per_call"] = per_call
     return row
 
 
@@ -3285,6 +3438,8 @@ def main(argv=None):
             if any(k in line for k in ("entry function", "registers",
                                         "spill")):
                 print(f"#   {name}: {line.strip()}")
+    resize_per_call = resize_launches(dev, torch.Generator(
+        device=dev).manual_seed(1))
 
     # --- main-path inputs ----------------------------------------------
     scene = garden_scene(seed=0, device=dev)
@@ -3564,13 +3719,17 @@ def main(argv=None):
     tools_rec = tools_path(dev, tag, kernels_of, loop_rec, loop_dir.name,
                            step_dev_ms)
     tools_errs = tools_rec["errs"]
-    struct_scene = loop_rec["scene"]        # phase 14 writes its views
-    del loop_rec["scene"], loop_rec["trainer"]
-    loop_dir.cleanup()
     print(f"# tools (phase 12): {time.perf_counter() - t12:.1f} s in all; "
           f"render {tools_rec['render_ms_per_view']:.3f} ms per view "
           f"{tag}")
     stamp(t_start, "tools checked")
+
+    # --- 17. the random background on phase 7's trainer -------------------
+    background_path(loop_rec["trainer"], tag)
+    struct_scene = loop_rec["scene"]        # phase 14 writes its views
+    del loop_rec["scene"], loop_rec["trainer"]
+    loop_dir.cleanup()
+    stamp(t_start, "random background checked")
 
     # --- 13. the 4K configuration through the CLI ------------------------
     timer = Timer()
@@ -3587,7 +3746,7 @@ def main(argv=None):
 
     # --- 15. images without PIL: the resize kernel, the JPEG decoder,
     # the truck configuration, the C paths --------------------------------
-    resize_row = resize_path(dev, timer, tag, gen)
+    resize_row = resize_path(dev, timer, tag, gen, resize_per_call)
     fixture_checks(tag)
     with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
         truck = truck_path(dev, tag, kernels_of, tmp)
@@ -3752,8 +3911,10 @@ def main(argv=None):
          "bound_by": "bytes"},
         # the ground truth's resize (no TPU kernel: PIL's resize in the JAX
         # package's decode); max_abs_err: the largest difference from its
-        # plain version over phase 15 (a)'s five shapes; launches over
-        # the truck run; library: F.interpolate, a near function
+        # plain version over phase 15 (a)'s seven shapes; launches over
+        # the truck run, launches_per_call from the profiler; library:
+        # F.interpolate, a near function; the keys ending in _mip360 at
+        # the full-size Mip-NeRF 360 view's shape
         {"name": "resize_bilinear", "route": "cuda",
          "source": "grendel_tpu_torch/csrc/resize.cu",
          "replaces": "grendel_tpu/data/scene.py:63",

@@ -54,9 +54,13 @@ indexes, only where the dataset is preloaded (``_apply_preload_rule``);
 otherwise it stays on the host, decoded at load or on demand
 (``Camera.gt``), and each step packs its batch's images into a pinned
 staging buffer and copies them behind the queued work (``PinnedUpload``),
-the JAX loop's host path. With ``random_background`` the
-background comes from the trainer's own generator seeded with
-``cfg.seed``; the JAX package draws it from a JAX key, so the two differ.
+the JAX loop's host path. With ``random_background`` the loop draws
+each step's background, JAX's ``uniform(fold_in(key(cfg.seed),
+iteration), (3,))`` at the step's pre-increment iteration
+(grendel_tpu/parallel/sharded.py:637-646), bit for bit: on the host from
+the iteration it counts (``prng.uniform_host``), uploaded from pinned
+memory behind the queued work, so the step gains one copy and no
+synchronizing call, and a resumed run draws what the unbroken one draws.
 
 Densification stops while the device's live tensors pass
 ``densify_memory_limit_percentage`` of its memory (the JAX loop's memory
@@ -234,7 +238,6 @@ class Trainer:
         self.bg = torch.tensor(
             [1.0, 1.0, 1.0] if cfg.model.white_background else [0.0] * 3,
             dtype=torch.float32, device=dev)
-        self._bg_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         # whole images per rank when pixel sharding is off or each rank
         # draws its own cameras
         d = cfg.dist
@@ -664,7 +667,7 @@ class Trainer:
         ids = torch.tensor([self._cam_index[c.uid] for c in batch],
                            device=self.device)
         cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
-        bg = self._background()
+        bg = self._background(it)
         self.timer.stop("10 batch")
         self.timer.start("20 ground truth")
         gt = self._batch_gt(batch, ids)
@@ -685,13 +688,23 @@ class Trainer:
         self._pending_isects = (metrics["num_isects"], cap)
         return metrics
 
-    def _background(self) -> torch.Tensor:
-        """The step's background: with ``random_background`` the next draw
-        of the trainer's generator (seeded with ``cfg.seed``, so the same
-        on every rank)."""
+    def _background(self, it: int) -> torch.Tensor:
+        """The background of the step at iteration ``it``: with
+        ``random_background`` JAX's draw from ``cfg.seed`` and ``it`` (the
+        same on every rank), else the fixed one. The loops own the draw:
+        the multi-rank loop's step leaves its own off."""
         if self.cfg.opt.random_background:
-            return torch.rand(3, generator=self._bg_gen, device=self.device)
+            return self._upload(prng.uniform_host(
+                prng.fold_in(prng.key(self.cfg.seed), it), 3, 0.0, 1.0))
         return self.bg
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """``x`` on the device, copied from pinned memory behind the
+        queued work: the host does not wait for the card here."""
+        t = torch.as_tensor(x)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _n_alive(self) -> int:
         return int(self.state.alive.sum())

@@ -28,8 +28,10 @@ Every host decision that leads to a collective reads values that are the
 same on every rank: the batch (one seed), the division, the all-gathered
 telemetry, the densify and redistribution info tables, the memory guard's
 share after its maximum over ranks, the entry ceiling after its minimum
-over ranks, and the schedule; so is the random background (one generator
-seeded with ``cfg.seed``).
+over ranks, and the schedule; so is the random background, which the
+loop draws from ``cfg.seed`` and the iteration (``Trainer._background``)
+and passes to a step whose ``ParallelConfig`` leaves the step's own draw
+off: one draw a step, JAX's.
 
 The capacity tuner keeps the JAX loop's thresholds and its generation
 guard for each static size of ``ParallelConfig``: the tile-list entries
@@ -276,7 +278,7 @@ class MultiRankTrainer(Trainer):
         self.timer.stop("10 division+pack")
 
         self.timer.start("50 step")
-        bg = self._background()
+        bg = self._background(it)
         self.state, metrics = self._measured_step(
             pcfg.isect_capacity,
             lambda: self._step(cams, gt_rows, bg, sh_degree, pos))
@@ -294,14 +296,6 @@ class MultiRankTrainer(Trainer):
                                               metrics["per_row_entries"]),
                          pcfg, self._retune_gen)
         return metrics
-
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """``x`` on the device, copied from pinned memory behind the
-        queued work: the host does not wait for the card here."""
-        t = torch.as_tensor(x)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _to_host_later(self, *tensors):
         """Start copying ``tensors`` to the host behind the queued work.

@@ -85,11 +85,13 @@ SIGNATURES = {
     },
     "resize": {
         "gts_resize_bilinear": (_c_int, [
-            _ptr, _ptr, _ptr,                # in tmp out
+            _ptr, _ptr,                      # in out
             _c_int, _c_int, _c_int, _c_int,  # in_h in_w out_h out_w
             _c_int,                          # channels
             _ptr, _ptr, _c_int,              # xbounds xk xksize
             _ptr, _ptr, _c_int,              # ybounds yk yksize
+            _c_int, _c_int, _c_int, _c_int,  # log_tile_w tile_h rows row_bytes
+            _c_int,                          # taps
             _ptr,                            # stream
         ]),
     },

@@ -83,8 +83,9 @@ class ParallelConfig(NamedTuple):
     send_cap_factor: float = 1.0  # send_cap = factor * N_loc
     # False = replicated Gaussians + summed gradients (pixel sharding stays)
     gaussians_distribution: bool = True
-    # one background per step from a generator seeded with bg_seed, the
-    # same on every rank
+    # the step draws its background: JAX's uniform(fold_in(key(bg_seed),
+    # iteration), (3,)) from the state's iteration, on the device, the
+    # same on every rank; the host loops leave it off and draw their own
     random_background: bool = False
     bg_seed: int = 0
 
@@ -482,8 +483,6 @@ class DistributedTrainer:
         self.device = (torch.device("cuda", torch.cuda.current_device())
                        if dist.get_backend() == "nccl"
                        else torch.device("cpu"))
-        self._bg_gen = torch.Generator(device=self.device).manual_seed(
-            cfg.bg_seed)
 
     def shard_state(self, state: TrainState) -> TrainState:
         """This rank's part of a whole state (:func:`shard_state`)."""
@@ -503,7 +502,10 @@ class DistributedTrainer:
         int32 is the same on every rank. Returns (new_state, metrics)."""
         cfg, bsz = self.cfg, self.cfg.bsz
         if cfg.random_background:
-            bg = torch.rand(3, generator=self._bg_gen, device=self.device)
+            # from the iteration tensor: no read back to the host
+            bg = prng.uniform(prng.fold_in(prng.key(cfg.bg_seed),
+                                           state.iteration), (3,), 0.0, 1.0,
+                              self.device)
         n_loc = state.alive.shape[0]
         leaves = [p.detach().requires_grad_(True) for p in state.params]
         tap = torch.zeros((bsz, n_loc, 2), dtype=torch.float32,

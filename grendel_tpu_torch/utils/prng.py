@@ -7,9 +7,11 @@ derivation and its layout of counters (``jax_threefry_partitionable``,
 on by default since JAX 0.5), and the draws the training loop takes:
 
   * :func:`key`: ``jax.random.key(seed)`` for 0 <= seed < 2^63;
-  * :func:`fold_in`: ``jax.random.fold_in(key, data)``;
+  * :func:`fold_in`: ``jax.random.fold_in(key, data)``, of an int or of
+    an int tensor (a step's iteration, folded on its device);
   * :func:`uniform`: ``jax.random.uniform(key, shape, minval=lo,
-    maxval=hi)`` in float32, bit for bit;
+    maxval=hi)`` in float32, bit for bit; :func:`uniform_host` the same
+    few floats on the host, in Python ints and numpy;
   * :func:`normal`: ``jax.random.normal(key, shape)`` in float32: the same
     uniform draw, bit for bit, through XLA's single-precision erfinv
     polynomial (:func:`erfinv`), whose log1p and rounding differ from
@@ -17,11 +19,12 @@ on by default since JAX 0.5), and the draws the training loop takes:
   * :func:`randint`: ``jax.random.randint(key, shape, 0, high)`` in int32,
     exactly.
 
-The port draws the densify's split offsets and the redistribution's
-destinations here, from the JAX package's keys, so that a run draws the
-numbers the JAX package's run draws on the same seed, on the CPU and on
-the card alike. A key is a pair of ints below 2^32; arrays are computed
-in int64 under 32-bit masks, in chunks of :data:`CHUNK` elements.
+The port draws the densify's split offsets, the redistribution's
+destinations and the random background here, from the JAX package's
+keys, so that a run draws the numbers the JAX package's run draws on the
+same seed, on the CPU and on the card alike. A key is a pair of ints
+below 2^32; arrays are computed in int64 under 32-bit masks, in chunks
+of :data:`CHUNK` elements.
 """
 
 from __future__ import annotations
@@ -65,9 +68,14 @@ def key(seed: int) -> Key:
     return (seed >> 32) & MASK, seed & MASK
 
 
-def fold_in(k: Key, data: int) -> Key:
+def fold_in(k: Key, data) -> Key:
     """``jax.random.fold_in(k, data)`` for 0 <= data < 2^32 (JAX's
-    ``split(k)[i]`` is ``fold_in(k, i)`` too)."""
+    ``split(k)[i]`` is ``fold_in(k, i)`` too). ``data`` may be an int
+    tensor of one value: the key is then a pair of int64 tensors on its
+    device, computed there without reading ``data`` back, and the draws
+    below take it as they take a key of ints."""
+    if isinstance(data, torch.Tensor):
+        return threefry2x32(k, 0, data.to(torch.int64) & MASK)
     return threefry2x32(k, 0, int(data) & MASK)
 
 
@@ -94,6 +102,20 @@ def uniform(k: Key, shape: Sequence[int], lo: float, hi: float,
     unit = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     u = ((unit - 1.0).double() * float(hi32 - lo32) + float(lo32)).float()
     return torch.clamp(u, min=float(lo32)).reshape(tuple(shape))
+
+
+def uniform_host(k: Key, n: int, lo: float, hi: float) -> np.ndarray:
+    """(n,) float32: :func:`uniform` ``(k, (n,), lo, hi)`` bit for bit,
+    computed on the host in Python ints and numpy, for a few elements
+    (the work of some hundred int operations a value, where
+    :func:`uniform` runs as many tensor ops)."""
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    bits = np.array([b0 ^ b1 for b0, b1 in (
+        threefry2x32(k, i >> 32, i & MASK) for i in range(n))], np.uint32)
+    unit = ((bits >> 9) | 0x3F800000).astype(np.uint32).view(np.float32)
+    u = ((unit - np.float32(1)).astype(np.float64) * float(hi32 - lo32)
+         + float(lo32)).astype(np.float32)
+    return np.maximum(u, lo32)
 
 
 def normal(k: Key, shape: Sequence[int], device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Port parity of grendel_tpu_torch/utils/prng.py, the JAX package's
 random numbers drawn with PyTorch, against ``jax.random`` itself: keys,
 folded keys and split keys equal; 32-bit draws, ``uniform`` and
-``randint`` equal bit for bit; ``normal`` from the same uniform draw
+``randint`` equal bit for bit, and the random background's draw from
+(seed, iteration) byte for byte; ``normal`` from the same uniform draw
 through XLA's erfinv
 polynomial, within 4 ulp (measured: about 95% of values equal, the rest
 at most 3 ulp apart, from log1p's and the multiply-adds' rounding).
@@ -61,6 +62,30 @@ def test_uniform_equals_jax(seed, lo, hi):
     got = prng.uniform(prng.key(seed), (50000,), lo, hi, "cpu")
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed, iteration", [
+    (0, 0), (7, 0), (7, 2), (0, 29_998), (5, 65_537), (3, 2 ** 20 + 6),
+    (2 ** 31 - 1, 2 ** 31 - 2)])
+def test_background_draw_equals_jax(seed, iteration):
+    """The random background of the step at ``iteration``, JAX's
+    ``uniform(fold_in(key(seed), iteration), (3,))`` in float32, byte for
+    byte in each of the port's three ways: on the host in Python ints
+    (the loops' draw), in tensors from a folded int key, and from the
+    iteration as an int32 tensor (``DistributedTrainer.step``'s draw)."""
+    want = np.asarray(jax.random.uniform(jax.random.fold_in(
+        jax.random.key(seed), iteration), (3,), jax.numpy.float32))
+    k = prng.fold_in(prng.key(seed), iteration)
+    host = prng.uniform_host(k, 3, 0.0, 1.0)
+    assert host.dtype == np.float32 and host.tobytes() == want.tobytes()
+    assert prng.uniform(k, (3,), 0.0, 1.0, "cpu").numpy().tobytes() == (
+        want.tobytes())
+    k_dev = prng.fold_in(prng.key(seed),
+                         torch.tensor(iteration, dtype=torch.int32))
+    assert tuple(int(v) for v in k_dev) == k
+    got = prng.uniform(k_dev, (3,), 0.0, 1.0, "cpu")
+    assert got.dtype == torch.float32
+    assert got.numpy().tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("seed, n, sh_degree", [(3, 120, 1), (0, 300, 3)])

@@ -216,6 +216,67 @@ def test_resume_from_checkpoint(runs):
     assert all(bool(torch.isfinite(p).all()) for p in t2.state.params)
 
 
+@pytest.mark.parametrize("random_background", [False, True],
+                         ids=["plain", "random_background"])
+def test_resume_repeats_the_unbroken_run(tmp_path, random_background):
+    """A run resumed from its iteration-4 checkpoint takes the unbroken
+    run's last two steps bit for bit, under random_background too: each
+    step draws its background from the seed and its iteration, so the
+    resumed steps draw what the unbroken ones drew and no generator state
+    needs saving. One training camera, so both runs draw the same
+    batches, and no densify. The unbroken run's backgrounds are JAX's
+    draws ``jax.random.uniform(fold_in(key(seed), it), (3,))`` at its
+    iterations 0, 2, 4, 6, byte for byte (black without the flag)."""
+    from grendel_tpu_torch.testing import SyntheticScene
+
+    scene = SyntheticScene(n_cams=1, n_test=1, width=48, height=32,
+                           n_gaussians=60, n_init_points=80, seed=4,
+                           device="cpu")
+    cfg = TrainConfig()
+    cfg.model.sh_degree = 1
+    cfg.model.model_path = str(tmp_path)
+    cfg.dist.bsz = 2
+    cfg.opt.iterations = 8
+    cfg.opt.random_background = random_background
+    cfg.opt.disable_auto_densification = True
+    cfg.checkpoint_iterations = [4]
+    cfg.test_iterations, cfg.save_iterations = [], []
+    cfg.quiet = True
+    cfg.seed = 5
+    cfg = cfg.finalize()
+
+    def run(c):
+        tr = Trainer(c, scene, device="cpu")
+        record, real_step = [], tr._step
+
+        def step(cams, gt, bg, sh_degree):
+            state, metrics = real_step(cams, gt, bg, sh_degree)
+            record.append((bg.clone(), metrics["loss"].clone()))
+            return state, metrics
+
+        tr._step = step
+        tr.train()
+        assert int(tr.state.iteration) == 8
+        return record
+
+    unbroken = run(cfg)
+    resumed_cfg = dataclasses.replace(
+        cfg, checkpoint_iterations=[],
+        start_checkpoint=os.path.join(str(tmp_path), "checkpoints", "4"))
+    resumed = run(resumed_cfg)
+    assert len(unbroken) == 4 and len(resumed) == 2
+    for (bg_a, loss_a), (bg_b, loss_b) in zip(unbroken[2:], resumed):
+        assert torch.equal(bg_a, bg_b) and torch.equal(loss_a, loss_b)
+    for it, (bg, _) in zip(range(0, 8, 2), unbroken):
+        want = (np.asarray(jax.random.uniform(jax.random.fold_in(
+            jax.random.key(cfg.seed), it), (3,))) if random_background
+            else np.zeros(3, np.float32))
+        assert bg.dtype == torch.float32
+        assert bg.numpy().tobytes() == want.tobytes(), it
+    assert len({bg.numpy().tobytes() for bg, _ in unbroken}) == (
+        4 if random_background else 1)
+
+
 @pytest.mark.parametrize("field,value", [
     ("local_sampling", True), ("save_strategy_history", True),
     ("grad_normalization_mode", "divide_by_visible_count")])

@@ -161,7 +161,7 @@ def test_detect_anomaly_raises_on_nan_loss(detect_anomaly, tmp_path,
     from grendel_tpu_torch.scripts import train
 
     monkeypatch.setattr(Trainer, "_background",
-                        lambda self: torch.full((3,), float("nan")))
+                        lambda self, it: torch.full((3,), float("nan")))
     argv = ["--synthetic", "--synthetic_size", "48x32", "--iterations", "4",
             "--bsz", "2", "--densify_from_iter", "100", "--device", "cpu",
             "-q", "-m", str(tmp_path)] + (["--detect_anomaly"]
