@@ -36,6 +36,7 @@ from ..ops.projection import (ProjectedSplats, project_gaussians,
                               project_gaussians_batched)
 from ..ops.rasterize_cuda import rasterize_slots_fwd
 from ..ops.rasterize_torch import RenderAux, rasterize_slots, slots_to_images
+from ..utils.timer import span
 
 BACKENDS = ("cuda", "torch")
 
@@ -108,24 +109,30 @@ def render_splats(splats: ProjectedSplats, cfg: RenderConfig,
     Returns (image (3, H, W), RenderAux)."""
     dev = splats.means2d.device
     _check_backend(cfg, dev)
-    if bg is None:
-        bg = torch.zeros(3, dtype=torch.float32, device=dev)
-    isect = isect_tiles(splats.means2d.detach(), splats.radii,
-                        splats.depths.detach(), cfg.tile_w, cfg.tile_h,
-                        cfg.tiles_x, cfg.tiles_y, capacity=cfg.isect_capacity,
-                        opacities=splats.opacities.detach())
-    ids, toff = isect.gauss_ids, isect.tile_offsets
-    if cfg.blend_cap < cfg.isect_capacity:
-        ids, toff = compact_entries_flat(ids, toff, cfg.blend_cap)
-    px0, py0 = _slot_origins(cfg.num_tiles, cfg, dev)
-    colors, t_final = _blend(splats, ids, px0, py0, cfg, tile_offsets=toff)
-    colors = colors + t_final[..., None] * bg[None, None, :]
-    img, tmap = slots_to_images(colors, t_final, 1, cfg.tiles_y, cfg.tiles_x,
-                                cfg.tile_h, cfg.tile_w, cfg.img_h, cfg.img_w)
-    aux = RenderAux(final_t=tmap[0],
-                    n_entries=isect.tile_offsets[1:] - isect.tile_offsets[:-1],
-                    num_isects=isect.num_isects)
-    return img[0], aux
+    with span("tile lists"):
+        isect = isect_tiles(splats.means2d.detach(), splats.radii,
+                            splats.depths.detach(), cfg.tile_w, cfg.tile_h,
+                            cfg.tiles_x, cfg.tiles_y,
+                            capacity=cfg.isect_capacity,
+                            opacities=splats.opacities.detach())
+        ids, toff = isect.gauss_ids, isect.tile_offsets
+        if cfg.blend_cap < cfg.isect_capacity:
+            ids, toff = compact_entries_flat(ids, toff, cfg.blend_cap)
+    with span("blend"):
+        if bg is None:
+            bg = torch.zeros(3, dtype=torch.float32, device=dev)
+        px0, py0 = _slot_origins(cfg.num_tiles, cfg, dev)
+        colors, t_final = _blend(splats, ids, px0, py0, cfg,
+                                 tile_offsets=toff)
+        colors = colors + t_final[..., None] * bg[None, None, :]
+        img, tmap = slots_to_images(colors, t_final, 1, cfg.tiles_y,
+                                    cfg.tiles_x, cfg.tile_h, cfg.tile_w,
+                                    cfg.img_h, cfg.img_w)
+        aux = RenderAux(
+            final_t=tmap[0],
+            n_entries=isect.tile_offsets[1:] - isect.tile_offsets[:-1],
+            num_isects=isect.num_isects)
+        return img[0], aux
 
 
 def render_image(params: GaussianParams, alive: torch.Tensor,
@@ -133,11 +140,12 @@ def render_image(params: GaussianParams, alive: torch.Tensor,
                  bg: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, RenderAux]:
     """Render one camera view of the model. Returns (image (3,H,W), aux)."""
-    act = activated(params)
-    splats = project_gaussians(
-        act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
-        cam.viewmat, cam.full_proj, cam.campos, cam.tanfov,
-        cfg.img_h, cfg.img_w, sh_degree)
+    with span("projection"):
+        act = activated(params)
+        splats = project_gaussians(
+            act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
+            cam.viewmat, cam.full_proj, cam.campos, cam.tanfov,
+            cfg.img_h, cfg.img_w, sh_degree)
     return render_splats(splats, cfg, bg=bg)
 
 
@@ -149,27 +157,34 @@ def _render_batch_rowslots(splats: ProjectedSplats, cfg: RenderConfig, bg):
     offsets, each camera with its own overflow budget."""
     b, n = splats.means2d.shape[:2]
     dev = splats.means2d.device
-    flat = ProjectedSplats(*(x.reshape((b * n,) + x.shape[2:])
-                             for x in splats))
     numt = cfg.num_tiles
-    isect = isect_tile_rows_blocked(
-        flat.means2d.detach(), flat.radii, flat.depths.detach(), b,
-        cfg.tile_w, cfg.tile_h, cfg.tiles_x, cfg.tiles_y,
-        capacity=b * cfg.isect_capacity, opacities=flat.opacities.detach())
-    ids, tlo, thi = isect.gauss_ids, isect.tile_lo, isect.tile_hi
-    if cfg.blend_cap < cfg.isect_capacity:
-        ids, tlo, thi = compact_entries_blocked(
-            ids, tlo, thi, b, numt, cfg.isect_capacity, cfg.blend_cap)
-    px0, py0 = _slot_origins(b * numt, cfg, dev)
-    colors, t_final = _blend(flat, ids, px0, py0, cfg, tile_lo=tlo,
-                             tile_hi=thi)
-    colors = colors + t_final[..., None] * bg[None, None, :]
-    img, tmap = slots_to_images(colors, t_final, b, cfg.tiles_y, cfg.tiles_x,
-                                cfg.tile_h, cfg.tile_w, cfg.img_h, cfg.img_w)
-    aux = RenderAux(final_t=tmap,
-                    n_entries=(isect.tile_hi - isect.tile_lo).reshape(b, numt),
-                    num_isects=isect.num_isects.expand(b))
-    return img, aux
+    with span("tile lists"):
+        flat = ProjectedSplats(*(x.reshape((b * n,) + x.shape[2:])
+                                 for x in splats))
+        isect = isect_tile_rows_blocked(
+            flat.means2d.detach(), flat.radii, flat.depths.detach(), b,
+            cfg.tile_w, cfg.tile_h, cfg.tiles_x, cfg.tiles_y,
+            capacity=b * cfg.isect_capacity,
+            opacities=flat.opacities.detach())
+        ids, tlo, thi = isect.gauss_ids, isect.tile_lo, isect.tile_hi
+        if cfg.blend_cap < cfg.isect_capacity:
+            ids, tlo, thi = compact_entries_blocked(
+                ids, tlo, thi, b, numt, cfg.isect_capacity, cfg.blend_cap)
+    with span("blend"):
+        if bg is None:
+            bg = torch.zeros(3, dtype=torch.float32, device=dev)
+        px0, py0 = _slot_origins(b * numt, cfg, dev)
+        colors, t_final = _blend(flat, ids, px0, py0, cfg, tile_lo=tlo,
+                                 tile_hi=thi)
+        colors = colors + t_final[..., None] * bg[None, None, :]
+        img, tmap = slots_to_images(colors, t_final, b, cfg.tiles_y,
+                                    cfg.tiles_x, cfg.tile_h, cfg.tile_w,
+                                    cfg.img_h, cfg.img_w)
+        aux = RenderAux(
+            final_t=tmap,
+            n_entries=(isect.tile_hi - isect.tile_lo).reshape(b, numt),
+            num_isects=isect.num_isects.expand(b))
+        return img, aux
 
 
 def render_batch(params: GaussianParams, alive: torch.Tensor,
@@ -188,19 +203,20 @@ def render_batch(params: GaussianParams, alive: torch.Tensor,
     splats' means include the tap."""
     dev = params.means3d.device
     _check_backend(cfg, dev)
-    if bg is None:
-        bg = torch.zeros(3, dtype=torch.float32, device=dev)
-    act = activated(params)
-    splats = project_gaussians_batched(
-        act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
-        cams, cfg.img_h, cfg.img_w, sh_degree)
-    if means2d_tap is not None:
-        splats = splats._replace(means2d=splats.means2d + means2d_tap)
+    with span("projection"):
+        act = activated(params)
+        splats = project_gaussians_batched(
+            act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
+            cams, cfg.img_h, cfg.img_w, sh_degree)
+        if means2d_tap is not None:
+            splats = splats._replace(means2d=splats.means2d + means2d_tap)
     if cfg.backend == "cuda":
         img, aux = _render_batch_rowslots(splats, cfg, bg)
         return img, splats, aux
     per_cam = [render_splats(ProjectedSplats(*(x[i] for x in splats)), cfg, bg)
                for i in range(splats.means2d.shape[0])]
-    img = torch.stack([im for im, _ in per_cam])
-    aux = RenderAux(*(torch.stack(x) for x in zip(*(a for _, a in per_cam))))
-    return img, splats, aux
+    with span("blend"):
+        img = torch.stack([im for im, _ in per_cam])
+        aux = RenderAux(*(torch.stack(x)
+                          for x in zip(*(a for _, a in per_cam))))
+        return img, splats, aux

@@ -29,6 +29,7 @@ from ..models.densify import (DensifyStats, accumulate_densify_stats,
 from ..models.gaussian_model import GaussianParams
 from ..models.optimizer import (AdamState, LrConfig, adam_init, adam_step,
                                 expon_lr)
+from ..utils.timer import span
 from .loss import batch_loss
 from .render import RenderConfig, render_batch
 
@@ -106,37 +107,39 @@ def train_step(
 ) -> Tuple[TrainState, dict]:
     """One training step. Returns (new_state, metrics)."""
     n = state.alive.shape[0]
-    gt = gt_u8.to(torch.float32) / 255.0
-    leaves = [p.detach().requires_grad_(True) for p in state.params]
-    tap = torch.zeros((bsz, n, 2), dtype=torch.float32,
-                      device=state.alive.device, requires_grad=True)
+    with span("projection"):
+        leaves = [p.detach().requires_grad_(True) for p in state.params]
+        tap = torch.zeros((bsz, n, 2), dtype=torch.float32,
+                          device=state.alive.device, requires_grad=True)
     images, splats, aux = render_batch(
         GaussianParams(*leaves), state.alive, cams, sh_degree, render_cfg,
         bg=bg, means2d_tap=tap)
-    loss, per_cam = batch_loss(images, gt, lambda_dssim,
-                               lr_scale_loss=lr_scale_loss)
-    *grads, tap_grad = torch.autograd.grad(loss, leaves + [tap])
-    # the tap gradient stays raw: the densify statistics read it unscaled
-    grads = normalize_grads_by_visibility(GaussianParams(*grads),
-                                          splats.radii,
-                                          grad_normalization_mode)
+    with span("loss"):
+        gt = gt_u8.to(torch.float32) / 255.0
+        loss, per_cam = batch_loss(images, gt, lambda_dssim,
+                                   lr_scale_loss=lr_scale_loss)
+        metrics = {"loss": loss.detach(), "l1": per_cam[:, 0].detach(),
+                   "ssim": per_cam[:, 1].detach()}
+    with span("backward"):
+        *grads, tap_grad = torch.autograd.grad(loss, leaves + [tap])
+    with span("optimizer"):
+        # the tap gradient stays raw: the densify statistics read it
+        # unscaled
+        grads = normalize_grads_by_visibility(GaussianParams(*grads),
+                                              splats.radii,
+                                              grad_normalization_mode)
 
-    # param.grad /= bsz unless "accumu" (gradients accumulated, not averaged)
-    if lr_scale_mode != "accumu":
-        grads = GaussianParams(*(g / bsz for g in grads))
+        # param.grad /= bsz unless "accumu" (gradients accumulated, not
+        # averaged)
+        if lr_scale_mode != "accumu":
+            grads = GaussianParams(*(g / bsz for g in grads))
 
-    stats = accumulate_densify_stats(state.stats, tap_grad, splats.radii,
-                                     render_cfg.img_w, render_cfg.img_h)
-    xyz_lr = xyz_sched(state.iteration)
-    params, adam = adam_step(state.params, grads, state.adam, lrs, xyz_lr,
-                             state.alive)
-    new_state = TrainState(params=params, alive=state.alive, adam=adam,
-                           stats=stats, iteration=state.iteration + bsz)
-    metrics = {
-        "loss": loss.detach(),
-        "l1": per_cam[:, 0].detach(),
-        "ssim": per_cam[:, 1].detach(),
-        "xyz_lr": xyz_lr,
-        "num_isects": aux.num_isects,
-    }
+        stats = accumulate_densify_stats(state.stats, tap_grad, splats.radii,
+                                         render_cfg.img_w, render_cfg.img_h)
+        xyz_lr = xyz_sched(state.iteration)
+        params, adam = adam_step(state.params, grads, state.adam, lrs, xyz_lr,
+                                 state.alive)
+        new_state = TrainState(params=params, alive=state.alive, adam=adam,
+                               stats=stats, iteration=state.iteration + bsz)
+    metrics.update(xyz_lr=xyz_lr, num_isects=aux.num_isects)
     return new_state, metrics

@@ -109,7 +109,7 @@ from ..models.gaussian_model import (GaussianParams, init_from_pcd,
 from ..models.optimizer import AdamState, scaled_lrs
 from ..utils import hbm, prng
 from ..utils.hbm import device_bytes_limit, entry_ceiling, mantissa_round_cap
-from ..utils.timer import End2endTimer, Timer, Tracer
+from ..utils.timer import End2endTimer, Timer, Tracer, span
 from .checkpoint import (load_checkpoint_sharded, load_tuner_state,
                          save_checkpoint, save_tuner_state)
 from .gaussian_io import save_ply
@@ -561,65 +561,57 @@ class Trainer:
         while it < end:
             if trace.at(it):
                 self._log(f"profiler trace written to {trace.directory}")
-            sh_degree = min(it // 1000, cfg.model.sh_degree)
-            metrics = self._train_step(it, sh_degree)
-            if torch.is_anomaly_enabled() and not bool(
-                    torch.isfinite(metrics["loss"])):
-                raise FloatingPointError(
-                    f"iter {it}: non-finite loss {float(metrics['loss'])} "
-                    f"(autograd anomaly mode)")
+            with span("iteration", it):
+                sh_degree = min(it // 1000, cfg.model.sh_degree)
+                metrics = self._train_step(it, sh_degree)
+                if torch.is_anomaly_enabled() and not bool(
+                        torch.isfinite(metrics["loss"])):
+                    raise FloatingPointError(
+                        f"iter {it}: non-finite loss "
+                        f"{float(metrics['loss'])} (autograd anomaly mode)")
 
-            # the schedule fires on the pre-increment, 1-based iteration
-            sched_it = it + 1
-            it += bsz
+                # the schedule fires on the pre-increment, 1-based iteration
+                sched_it = it + 1
+                it += bsz
 
-            self._epoch_losses.append(metrics["loss"])
-            if self.dataset.epoch != self._last_epoch:
-                vals = torch.stack(self._epoch_losses).cpu().numpy()
-                self._log(f"epoch {self._last_epoch} done at iter {it}: "
-                          f"avg loss {np.mean(vals):.5f} ({len(vals)} steps)")
-                self._epoch_losses = []
-                self._last_epoch = self.dataset.epoch
+                with span("log"):
+                    self._log_step(it, it0, t_start, metrics)
 
-            if it % cfg.log_interval < bsz:
-                ips = (it - it0) / max(time.time() - t_start, 1e-9)
-                self._log(f"iter {it}: loss={float(metrics['loss']):.5f} "
-                          f"n3dgs={self._n_alive()} "
-                          f"xyz_lr={float(metrics['xyz_lr']):.2e} "
-                          f"it/s={ips:.2f}")
-                if cfg.enable_timer:
-                    self._log("timers: " + self.timer.report())
+                if (not o.disable_auto_densification
+                        and o.densify_from_iter < sched_it
+                        <= o.densify_until_iter
+                        and check_update_at_this_iter(
+                            sched_it, bsz, o.densification_interval, 0)
+                        and not self._memory_guard_tripped()):
+                    with span("80 densify", timer=self.timer):
+                        self._densify(it, sched_it)
 
-            if (not o.disable_auto_densification
-                    and o.densify_from_iter < sched_it <= o.densify_until_iter
-                    and check_update_at_this_iter(
-                        sched_it, bsz, o.densification_interval, 0)
-                    and not self._memory_guard_tripped()):
-                self.timer.start("80 densify")
-                self._densify(it, sched_it)
-                self.timer.stop("80 densify")
+                if (check_update_at_this_iter(sched_it, bsz,
+                                              o.opacity_reset_interval, 0)
+                        and sched_it + bsz <= o.opacity_reset_until_iter):
+                    with span("opacity reset"):
+                        self._reset_opacity()
+                        self.opacity_reset_iters.append(int(sched_it))
+                        self._log(f"iter {it}: opacity reset")
 
-            if (check_update_at_this_iter(sched_it, bsz,
-                                          o.opacity_reset_interval, 0)
-                    and sched_it + bsz <= o.opacity_reset_until_iter):
-                self._reset_opacity()
-                self.opacity_reset_iters.append(int(sched_it))
-                self._log(f"iter {it}: opacity reset")
-
-            # eval, save and checkpoint are kept out of the end-to-end time
-            self.end2end.pause()
-            if any(it - bsz < t <= it for t in cfg.test_iterations):
-                self.timer.start("90 eval")
-                self._run_eval(it, sh_degree)
-                self.timer.stop("90 eval")
-            if any(it - bsz < t <= it for t in cfg.save_iterations):
-                self.save_model(it)
-            if any(it - bsz < t <= it for t in cfg.checkpoint_iterations):
-                self.save_checkpoint(it)
-            self.end2end.start()
-            if ((cfg.check_gpu_memory or cfg.check_cpu_memory
-                 or cfg.log_memory_summary) and it % cfg.log_interval < bsz):
-                self._log_memory(it)
+                # eval, save and checkpoint are kept out of the end-to-end
+                # time
+                self.end2end.pause()
+                if any(it - bsz < t <= it for t in cfg.test_iterations):
+                    with span("90 eval", timer=self.timer):
+                        self._run_eval(it, sh_degree)
+                if any(it - bsz < t <= it for t in cfg.save_iterations):
+                    with span("save"):
+                        self.save_model(it)
+                if any(it - bsz < t <= it for t in cfg.checkpoint_iterations):
+                    with span("save"):
+                        self.save_checkpoint(it)
+                self.end2end.start()
+                if ((cfg.check_gpu_memory or cfg.check_cpu_memory
+                     or cfg.log_memory_summary)
+                        and it % cfg.log_interval < bsz):
+                    with span("log"):
+                        self._log_memory(it)
 
         if trace.stop():
             self._log(f"profiler trace written to {trace.directory}")
@@ -642,6 +634,27 @@ class Trainer:
             self._log(f"saved strategy history to {path}")
         return self.state
 
+    def _log_step(self, it: int, it0: int, t_start: float, metrics: dict):
+        """The epoch's loss line when an epoch ends, and every
+        ``log_interval`` the step's line (and the timers'): the loop's
+        readbacks."""
+        cfg, bsz = self.cfg, self.cfg.dist.bsz
+        self._epoch_losses.append(metrics["loss"])
+        if self.dataset.epoch != self._last_epoch:
+            vals = torch.stack(self._epoch_losses).cpu().numpy()
+            self._log(f"epoch {self._last_epoch} done at iter {it}: "
+                      f"avg loss {np.mean(vals):.5f} ({len(vals)} steps)")
+            self._epoch_losses = []
+            self._last_epoch = self.dataset.epoch
+        if it % cfg.log_interval < bsz:
+            ips = (it - it0) / max(time.time() - t_start, 1e-9)
+            self._log(f"iter {it}: loss={float(metrics['loss']):.5f} "
+                      f"n3dgs={self._n_alive()} "
+                      f"xyz_lr={float(metrics['xyz_lr']):.2e} "
+                      f"it/s={ips:.2f}")
+            if cfg.enable_timer:
+                self._log("timers: " + self.timer.report())
+
     def _next_batch(self) -> List[Camera]:
         """The next batch: with ``local_sampling`` from each rank's group
         of cameras (``uid % world``), else from the one stream."""
@@ -662,29 +675,27 @@ class Trainer:
         """Draw a batch and take one step; check the previous step's entry
         count. Returns the step's metrics."""
         bsz = self.cfg.dist.bsz
-        self.timer.start("10 batch")
-        batch = self._next_batch()
-        ids = torch.tensor([self._cam_index[c.uid] for c in batch],
-                           device=self.device)
-        cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
-        bg = self._background(it)
-        self.timer.stop("10 batch")
-        self.timer.start("20 ground truth")
-        gt = self._batch_gt(batch, ids)
-        self.timer.stop("20 ground truth")
+        with span("10 batch", timer=self.timer):
+            batch = self._next_batch()
+            ids = torch.tensor([self._cam_index[c.uid] for c in batch],
+                               device=self.device)
+            cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
+            bg = self._background(it)
+        with span("20 ground truth", timer=self.timer):
+            gt = self._batch_gt(batch, ids)
 
-        self.timer.start("50 step")
-        cap = self._isect_cap()
-        self.state, metrics = self._measured_step(
-            cap, lambda: self._step(cams, gt, bg, sh_degree))
-        self.timer.stop("50 step")
+        with span("50 step", timer=self.timer):
+            cap = self._isect_cap()
+            self.state, metrics = self._measured_step(
+                cap, lambda: self._step(cams, gt, bg, sh_degree))
         # the whole batch is the one device's row span
         self._record_division(it, batch, [0, bsz * self._tiles_y])
         # the previous step's entry count, read now that this step is
         # queued behind it
         if self._pending_isects is not None:
-            self._check_isect_capacity(int(self._pending_isects[0][0]),
-                                       self._pending_isects[1])
+            with span("capacity check"):
+                self._check_isect_capacity(int(self._pending_isects[0][0]),
+                                           self._pending_isects[1])
         self._pending_isects = (metrics["num_isects"], cap)
         return metrics
 
@@ -721,9 +732,11 @@ class Trainer:
         o = self.cfg.opt
         while (self._densify_growth_ratio * self._max_alive
                > 0.92 * self.capacity):
-            self._grow_capacity()
+            with span("grow"):
+                self._grow_capacity()
         prev_alive = self._max_alive
-        info = self._densify_and_prune(it, sched_it)
+        with span("densify round"):
+            info = self._densify_and_prune(it, sched_it)
         self.densify_count += 1
         clone, split, prune, dropped, alive = (int(info[:, k].sum())
                                                for k in range(5))
@@ -739,7 +752,8 @@ class Trainer:
                   f"clone={clone} split={split} prune={prune} alive={alive} "
                   f"dropped={dropped} max_occ={occ:.2f}")
         if dropped > 0 or occ > o.capacity_growth_trigger:
-            self._grow_capacity()
+            with span("grow"):
+                self._grow_capacity()
         self._after_densify(it, info)
 
     def _densify_and_prune(self, it: int, sched_it: int) -> np.ndarray:

@@ -68,6 +68,7 @@ from ..parallel.redistribute import redistribute
 from ..parallel.sharded import (DistributedTrainer, ParallelConfig,
                                 shard_state)
 from ..utils import hbm
+from ..utils.timer import span
 from .checkpoint import load_checkpoint_sharded
 from .train import TrainState, train_state_init
 from .trainer import Trainer, device_gt_bank
@@ -266,28 +267,27 @@ class MultiRankTrainer(Trainer):
         d = self.cfg.dist
         self._sh_degree = sh_degree
         pcfg = self._trainer(sh_degree).cfg
-        self.timer.start("10 division+pack")
-        batch = self._next_batch()
-        pos_np = self._division(batch, pcfg)
-        ids = self._upload(np.array([self._cam_index[c.uid] for c in batch]))
-        pos = self._upload(pos_np)
-        cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
-        self.timer.start("20 ground truth")
-        gt_rows = self._gt_rows(batch, ids, pos_np, pcfg)
-        self.timer.stop("20 ground truth")
-        self.timer.stop("10 division+pack")
+        with span("10 division+pack", timer=self.timer):
+            batch = self._next_batch()
+            pos_np = self._division(batch, pcfg)
+            ids = self._upload(np.array([self._cam_index[c.uid]
+                                         for c in batch]))
+            pos = self._upload(pos_np)
+            cams = type(self._cam_bank)(*(x[ids] for x in self._cam_bank))
+            with span("20 ground truth", timer=self.timer):
+                gt_rows = self._gt_rows(batch, ids, pos_np, pcfg)
 
-        self.timer.start("50 step")
-        bg = self._background(it)
-        self.state, metrics = self._measured_step(
-            pcfg.isect_capacity,
-            lambda: self._step(cams, gt_rows, bg, sh_degree, pos))
-        self.timer.stop("50 step")
+        with span("50 step", timer=self.timer):
+            bg = self._background(it)
+            self.state, metrics = self._measured_step(
+                pcfg.isect_capacity,
+                lambda: self._step(cams, gt_rows, bg, sh_degree, pos))
         self._record_division(it, batch, pos_np)
         # the previous step's telemetry, on the host by now: no step waits
         # for its own
         if self._pending is not None:
-            self._fold_telemetry(it)
+            with span("capacity check"):
+                self._fold_telemetry(it)
         want_history = (not d.no_heuristics_update
                         and not self._whole_image_division
                         and self.world > 1 and it >= self.warmup_iters)

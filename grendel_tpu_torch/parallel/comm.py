@@ -29,6 +29,8 @@ from typing import Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.timer import span
+
 
 def init_group(device, rank: Optional[int] = None,
                world_size: Optional[int] = None, store=None) -> None:
@@ -123,9 +125,10 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     """Block ``x[s]`` of this rank goes to rank ``s``; block ``out[s]`` came
     from rank ``s``. ``x`` has the world size as its leading axis (equal
     splits). Differentiable in ``x``."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _AllToAll.apply(x)
-    return _exchange(x)
+    with span("exchange"):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _AllToAll.apply(x)
+        return _exchange(x)
 
 
 def _all_reduce(tensors: List[torch.Tensor], op) -> List[torch.Tensor]:

@@ -131,7 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a torch.profiler trace of about 10 steps into "
                         "<model_path>/trace")
     p.add_argument("--enable_timer", action="store_true",
-                   help="per-stage device times logged every log_interval")
+                   help="per-stage times logged every log_interval: on the "
+                        "card the stream's time between CUDA events, so a "
+                        "host stage's is the stream's queue, not the host's "
+                        "work")
     p.add_argument("--zhx_time", action="store_true",
                    help="the reference's alias of --enable_timer")
     p.add_argument("--debug", action="store_true")

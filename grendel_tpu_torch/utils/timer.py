@@ -1,9 +1,14 @@
-"""Keyed stage timers and the end-to-end timer of the training loop.
+"""Spans of the port's work, the keyed stage timer built on them, the
+end-to-end timer of the training loop and the profiler window.
 
-Counterpart of grendel_tpu/utils/timer.py. ``Timer`` times keyed stages
+Counterpart of grendel_tpu/utils/timer.py. :func:`span` marks one stage of
+the work (a loop stage, a layer of the step); with ``torch.profiler``
+running it is a range on the profiler's clock, the clock of the card's
+activities. ``Timer`` times the stages whose spans are given it
 ("10 division+pack", "50 step", "80 densify", ...) and reports their sums
 every log interval; on a CUDA device each start and stop records a CUDA
-event on the current stream, and only :meth:`Timer.report` waits for the
+event on the current stream, so a stage's time is the stream's time
+between the two events, and only :meth:`Timer.report` waits for the
 device. A disabled timer records nothing and never synchronises.
 ``End2endTimer`` adds up training wall time with eval and save paused.
 ``Tracer`` records a ``torch.profiler`` trace of a span of iterations.
@@ -11,16 +16,85 @@ device. A disabled timer records nothing and never synchronises.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
+_PROFILER = torch.autograd.profiler
+_NULL = contextlib.nullcontext()
+# The profiler's range of a span: operator-scope. A user-scope range
+# (``torch.profiler.record_function``) also adds a copy of itself to the
+# card's activities, which readers of the trace would count as device work.
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+# Every span the port opens, by layer.
+SPANS = (
+    # the training loop (engine/trainer.py, engine/trainer_dist.py)
+    "iteration", "10 batch", "10 division+pack", "20 ground truth",
+    "50 step", "capacity check", "log", "80 densify", "opacity reset",
+    "90 eval", "save",
+    # densify (engine/trainer.py Trainer._densify)
+    "grow", "densify round",
+    # the training step (engine/train.py, engine/render.py)
+    "projection", "tile lists", "blend", "loss", "backward", "optimizer",
+    # the sparse exchange (parallel/comm.py)
+    "exchange",
+)
+
+
+class _Span:
+    """An open span: the profiler's range, the timer's stage, or both."""
+
+    __slots__ = ("_range", "_timer", "_key")
+
+    def __init__(self, label: str, key: str, timer, profiled: bool):
+        self._range = _RANGE(label) if profiled else None
+        self._timer, self._key = timer, key
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        if self._timer is not None:
+            self._timer.start(self._key)
+        return self
+
+    def __exit__(self, *exc):
+        if self._timer is not None:
+            self._timer.stop(self._key)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str, arg=None, timer: Optional["Timer"] = None):
+    """A span of the port's work: ``with span("loss"): ...``.
+
+    With a profiler running, a range named ``name`` (``"name #arg"`` where
+    ``arg`` is given: the iteration of a loop pass, which the spans nested
+    in it share). With ``timer`` enabled, the timer's stage ``name``
+    too. Otherwise one shared null context, so a span costs a check of
+    the profiler's flag."""
+    profiled = _PROFILER._is_profiler_enabled
+    if timer is not None and not timer.enabled:
+        timer = None
+    if not profiled and timer is None:
+        return _NULL
+    return _Span(name if arg is None else f"{name} #{arg}", name, timer,
+                 profiled)
+
 
 class Timer:
-    """Keyed stage timer: CUDA events on a CUDA device, the host clock on
-    the CPU."""
+    """Keyed stage timer of the spans given it: CUDA events on a CUDA
+    device, the host clock on the CPU.
+
+    On the card a stage's time is the stream's between its two events.
+    For a stage that only enqueues work or waits on the host (``10
+    batch``, ``20 ground truth``) that is the stream's queue, not the
+    host's work; the span's host time, in a profiler's trace, is the
+    host's."""
 
     def __init__(self, enabled: bool = True, device=None):
         self.enabled = enabled
