@@ -876,6 +876,9 @@ def train_phase(kernels_of, tr, steps):
         require(all(v > 0 for v in n.values()),
                 f"step {i + 1}: a kernel of the training path did not "
                 f"launch: {n}")
+        require(n.get("P", 1) == 1 and n.get("Pb", 1) == 1,
+                f"step {i + 1}: the projection launched {n}: one forward "
+                f"and one backward a step expected")
         require(bool(torch.isfinite(m["loss"])), f"step {i + 1}: loss {loss}")
         losses.append(loss)
         for name in totals:
@@ -2978,6 +2981,191 @@ def resize_path(dev, timer, tag, gen, per_call):
     return row
 
 
+# the projection kernel pair's timed shapes: the benchmark cells'. The
+# garden at 4K (7,950,080 slots, 5.3M live, one 5187x3361 view, SH degree
+# 3) and the truck (150,016 slots, 100,000 live, 8 views of 979x546, SH
+# degree 0), both storing K = 16 SH coefficients a channel
+PROJ_SHAPES = (("garden4k", 7_950_080, 5_300_000, 1, (5187, 3361), 3),
+               ("truck1k", 150_016, 100_000, 8, (979, 546), 0))
+
+
+def proj_bytes(n, b, k_rest, sh_degree):
+    """(forward, backward) bytes of the projection's kernel pair: the raw
+    leaves read once (the SH rest only above degree 0) and the alive mask,
+    the (B, N) splats written once; the backward reads the leaves, each
+    pair's radius and its 9 upstream gradients, and writes every leaf's
+    gradient once (the SH rest's zeros too)."""
+    rest = 3 * k_rest if sh_degree > 0 else 0
+    leaves = n * (3 + 3 + 4 + 1 + 3 + rest) * 4
+    fwd = leaves + n + b * n * 11 * 4
+    bwd = leaves + b * n * (1 + 9) * 4 + n * (14 + 3 * k_rest) * 4
+    return fwd, bwd
+
+
+def proj_scene(dev, gen, n, live, b, w, h):
+    """Random raw parameters on the card in the garden benchmark's
+    distribution (``live`` of ``n`` slots alive) and ``b`` orbit cameras
+    of ``w`` x ``h`` at distance 5."""
+    from grendel_tpu_torch.cameras import batch_camera_arrays
+    from grendel_tpu_torch.models.gaussian_model import GaussianParams
+    from grendel_tpu_torch.testing import make_test_camera
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, device=dev, generator=gen)
+
+    def nrm(shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    rgb = u((n, 1, 3), 0.1, 0.9)
+    o = u((n,), 0.3, 0.95)
+    params = GaussianParams(
+        means3d=u((n, 3), -3.0, 3.0), sh_dc=(rgb - 0.5) / 0.28209479177387814,
+        sh_rest=0.05 * nrm((n, 15, 3)), scales_raw=u((n, 3), -5.5, -3.5),
+        quats=nrm((n, 4)), opacities_raw=torch.log(o / (1 - o)))
+    alive = torch.arange(n, device=dev) < live
+    cams = batch_camera_arrays([make_test_camera(w, h, dist=5.0,
+                                                 angle=0.3 * i)
+                                for i in range(b)], dev)
+    return params, alive, cams
+
+
+def projection_path(dev, timer, tag, gen):
+    """The projection kernel pair (csrc/projection.cu) at the benchmark
+    cells' shapes: radii equal to the plain version's on every slot, the
+    other outputs and the raw leaves' gradients (cotangents random where
+    the radius is positive, zero elsewhere, as the render path sends them)
+    beside the plain version's; then each kernel's time beside its byte
+    bound, the plain version's forward and its forward and backward
+    (autograd), and the kernel pair's through its autograd Function.
+    Returns the kernels line's two rows (garden shape; the truck's under
+    keys ending in _truck), without launches."""
+    from grendel_tpu_torch.models.gaussian_model import (GaussianParams,
+                                                         activated)
+    from grendel_tpu_torch.ops import projection as P
+
+    fwd_row, bwd_row = {}, {}
+    for what, n, live, b, (w, h), deg in PROJ_SHAPES:
+        params, alive, cams = proj_scene(dev, gen, n, live, b, w, h)
+        leaves = GaussianParams(*(x.clone().requires_grad_(True)
+                                  for x in params))
+        got = P.project_cuda(leaves, alive, cams, h, w, deg)
+        act = activated(params)
+        with torch.no_grad():
+            want = P.project_gaussians_batched(
+                act.means3d, act.scales, act.quats, act.opacities, act.sh,
+                alive, cams, h, w, deg)
+        n_diff = int((got.radii != want.radii).sum())
+        require(n_diff == 0, f"projection kernel on {what}: {n_diff} radii "
+                f"differ from the plain version's")
+        out_err = max(rel_err(getattr(got, k).detach(), getattr(want, k))
+                      for k in ("means2d", "conics", "colors", "opacities"))
+        vis = (want.radii > 0).float()
+        cts = [torch.randn(x.shape, device=dev, generator=gen)
+               * (vis[..., None] if x.dim() == 3 else vis)
+               for x in (got.means2d, got.conics, got.colors, got.opacities)]
+        g_got = torch.autograd.grad(
+            sum((x * c).sum() for x, c in zip(
+                (got.means2d, got.conics, got.colors, got.opacities), cts)),
+            list(leaves))
+        plain_leaves = GaussianParams(*(x.clone().requires_grad_(True)
+                                        for x in params))
+        pa = activated(plain_leaves)
+        ps = P.project_gaussians_batched(pa.means3d, pa.scales, pa.quats,
+                                         pa.opacities, pa.sh, alive, cams,
+                                         h, w, deg)
+        g_want = torch.autograd.grad(
+            sum((x * c).sum() for x, c in zip(
+                (ps.means2d, ps.conics, ps.colors, ps.opacities), cts)),
+            list(plain_leaves))
+        grad_err = max(rel_err(x, y) for x, y in zip(g_got, g_want)
+                       if float(y.abs().max()) > 0)
+        require(out_err <= 1e-5 and grad_err <= 1e-3,
+                f"projection kernel on {what}: outputs {out_err:.3e}, "
+                f"gradients {grad_err:.3e} (err / max) from plain")
+        del got, want, ps, g_got, g_want, leaves, plain_leaves, pa
+        with torch.no_grad():
+            radii = P.project_cuda(params, alive, cams, h, w, deg).radii
+        ct = [c.contiguous() for c in cts]
+
+        def kfwd():
+            with torch.no_grad():
+                P.project_cuda(params, alive, cams, h, w, deg)
+
+        def kbwd():
+            P.project_cuda_vjp(params, cams, radii, h, w, deg, *ct)
+
+        def pfwd():
+            with torch.no_grad():
+                a = activated(params)
+                P.project_gaussians_batched(a.means3d, a.scales, a.quats,
+                                            a.opacities, a.sh, alive, cams,
+                                            h, w, deg)
+
+        def fwd_bwd(project):
+            lv = GaussianParams(*(x.detach().requires_grad_(True)
+                                  for x in params))
+            s = project(lv)
+            torch.autograd.grad(
+                sum((x * c).sum() for x, c in zip(
+                    (s.means2d, s.conics, s.colors, s.opacities), ct)),
+                list(lv))
+
+        def plain_project(lv):
+            a = activated(lv)
+            return P.project_gaussians_batched(a.means3d, a.scales, a.quats,
+                                               a.opacities, a.sh, alive,
+                                               cams, h, w, deg)
+
+        f_bytes, b_bytes = proj_bytes(n, b, 15, deg)
+        f = {"ms": timer.ms(kfwd, 20), "device_ms": timer.device_ms(kfwd, 20),
+             "plain_ms": timer.ms(pfwd, 5),
+             "bound_ms": 1e3 * f_bytes / HBM_BYTES_PER_S,
+             "max_abs_err": out_err}
+        bk = {"ms": timer.ms(kbwd, 20), "device_ms": timer.device_ms(kbwd, 20),
+              "bound_ms": 1e3 * b_bytes / HBM_BYTES_PER_S,
+              "max_abs_err": grad_err,
+              # the pair through its autograd Function, and the plain
+              # version's forward and backward by autograd
+              "pair_ms": timer.ms(lambda: fwd_bwd(
+                  lambda lv: P.project_cuda(lv, alive, cams, h, w, deg)), 5),
+              "plain_ms": timer.ms(lambda: fwd_bwd(plain_project), 3)}
+        pair_launches = profile(lambda: fwd_bwd(
+            lambda lv: P.project_cuda(lv, alive, cams, h, w, deg)), 3,
+            top=4)[1]
+        plain_launches = profile(lambda: fwd_bwd(plain_project), 3, top=0)[1]
+        n_pair = sum(k for _, k, _ in pair_launches)
+        n_plain = sum(k for _, k, _ in plain_launches)
+        print(f"# projection kernels on {what} ({n} slots, {live} live, "
+              f"{b} x {w}x{h}, SH {deg}): radii equal on every slot, "
+              f"outputs {out_err:.2e} and gradients {grad_err:.2e} (err / "
+              f"max) from plain; forward {f['ms']:.4f} ms (device alone "
+              f"{f['device_ms']:.4f}), bound {f['bound_ms']:.4f} ms "
+              f"({f_bytes} bytes, {f['bound_ms'] / f['device_ms']:.1%} of "
+              f"it), plain forward {f['plain_ms']:.3f} ms; backward "
+              f"{bk['ms']:.4f} ms (device alone {bk['device_ms']:.4f}), "
+              f"bound {bk['bound_ms']:.4f} ms ({b_bytes} bytes, "
+              f"{bk['bound_ms'] / bk['device_ms']:.1%}); forward and "
+              f"backward through autograd {bk['pair_ms']:.3f} ms and "
+              f"{n_pair:.0f} launches, plain {bk['plain_ms']:.3f} ms and "
+              f"{n_plain:.0f} launches {tag}")
+        f["bound_by"] = bk["bound_by"] = "bytes"
+        if what == "garden4k":
+            fwd_row.update(f)
+            bwd_row.update(bk)
+        else:
+            fwd_row.update({f"{k}_truck": v for k, v in f.items()
+                            if k != "bound_by"})
+            bwd_row.update({f"{k}_truck": v for k, v in bk.items()
+                            if k != "bound_by"})
+        del params, alive, radii, cts, ct
+        torch.cuda.empty_cache()
+    fwd_row["max_abs_err"] = max(fwd_row.pop("max_abs_err"),
+                                 fwd_row["max_abs_err_truck"])
+    bwd_row["max_abs_err"] = max(bwd_row.pop("max_abs_err"),
+                                 bwd_row["max_abs_err_truck"])
+    return fwd_row, bwd_row
+
+
 def fixture_checks(tag):
     """Phase 15 (b): each committed fixture JPEG of tests/data/jpeg decoded
     on this host bit-equal to PIL's decode committed beside it."""
@@ -3404,7 +3592,7 @@ def main(argv=None):
     from grendel_tpu_torch.engine.loss import batch_loss
     from grendel_tpu_torch.models.gaussian_model import GaussianParams
     from grendel_tpu_torch.models.optimizer import adam_step
-    from grendel_tpu_torch.ops import rasterize_cuda, scan_cuda
+    from grendel_tpu_torch.ops import projection, rasterize_cuda, scan_cuda
     from grendel_tpu_torch.ops.rasterize_torch import (
         rasterize_slots, rasterize_slots_bwd_rows)
     from grendel_tpu_torch.testing import (flagship_inputs, flagship_training,
@@ -3562,7 +3750,9 @@ def main(argv=None):
     # --- 6. the training path (the main path) ------------------------------
     tr = garden_training(seed=0, device=dev)
     require(tr.cfg == cfg, "garden_training sized another render config")
-    kernels_of = {"K1": k1, "K2": k2, "K2s": k2s, "K3": k3}
+    kernels_of = {"K1": k1, "K2": k2, "K2s": k2s, "K3": k3,
+                  "P": projection.project_cuda,
+                  "Pb": projection.project_cuda_vjp}
     state0 = clone_state(tr.state)
     state, losses, launches = train_phase(kernels_of, tr, TRAIN_STEPS)
     print(f"# training path, {TRAIN_STEPS} steps: launches {launches}, loss "
@@ -3841,6 +4031,8 @@ def main(argv=None):
         for k in k3_row:
             k3_row[k] += row[k]
     k4_row, k5_row = dma_rows(dev, timer, tag, dma_results)
+    proj_fwd_row, proj_bwd_row = projection_path(
+        dev, timer, tag, torch.Generator(device=dev).manual_seed(20))
     stamp(t_start, "timings done")
 
     # ms: the clock of the kernels line, on which the card may wait for
@@ -3919,6 +4111,19 @@ def main(argv=None):
          "source": "grendel_tpu_torch/csrc/resize.cu",
          "replaces": "grendel_tpu/data/scene.py:63",
          "launches": truck["launches"], **resize_row},
+        # the projection layer (no TPU kernel: XLA fuses the JAX package's
+        # activation, projection and SH); launches over the host training
+        # loop's steps; times at the garden4k cell's shape, the truck's
+        # under keys ending in _truck; max_abs_err: outputs (forward) and
+        # gradients (backward), err / max against the plain version
+        {"name": "project_fwd", "route": "cuda",
+         "source": "grendel_tpu_torch/csrc/projection.cu",
+         "replaces": None, "launches": loop_launches["P"],
+         "library_ms": None, **proj_fwd_row},
+        {"name": "project_bwd", "route": "cuda",
+         "source": "grendel_tpu_torch/csrc/projection.cu",
+         "replaces": None, "launches": loop_launches["Pb"],
+         "library_ms": None, **proj_bwd_row},
     ]}
     print(card)
     print(json.dumps(kernels_line))

@@ -29,11 +29,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..cameras import CameraArrays
-from ..models.gaussian_model import GaussianParams, activated
+from ..models.gaussian_model import GaussianParams
 from ..ops.isect import (compact_entries_blocked, compact_entries_flat,
                          isect_tile_rows_blocked, isect_tiles)
-from ..ops.projection import (ProjectedSplats, project_gaussians,
-                              project_gaussians_batched)
+from ..ops.projection import ProjectedSplats, project_params
 from ..ops.rasterize_cuda import rasterize_slots_fwd
 from ..ops.rasterize_torch import RenderAux, rasterize_slots, slots_to_images
 from ..utils.timer import span
@@ -141,11 +140,10 @@ def render_image(params: GaussianParams, alive: torch.Tensor,
                  ) -> Tuple[torch.Tensor, RenderAux]:
     """Render one camera view of the model. Returns (image (3,H,W), aux)."""
     with span("projection"):
-        act = activated(params)
-        splats = project_gaussians(
-            act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
-            cam.viewmat, cam.full_proj, cam.campos, cam.tanfov,
-            cfg.img_h, cfg.img_w, sh_degree)
+        splats = project_params(params, alive,
+                                CameraArrays(*(x[None] for x in cam)),
+                                cfg.img_h, cfg.img_w, sh_degree)
+        splats = ProjectedSplats(*(x[0] for x in splats))
     return render_splats(splats, cfg, bg=bg)
 
 
@@ -204,10 +202,8 @@ def render_batch(params: GaussianParams, alive: torch.Tensor,
     dev = params.means3d.device
     _check_backend(cfg, dev)
     with span("projection"):
-        act = activated(params)
-        splats = project_gaussians_batched(
-            act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
-            cams, cfg.img_h, cfg.img_w, sh_degree)
+        splats = project_params(params, alive, cams, cfg.img_h, cfg.img_w,
+                                sh_degree)
         if means2d_tap is not None:
             splats = splats._replace(means2d=splats.means2d + means2d_tap)
     if cfg.backend == "cuda":

@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("scan", "rasterize_fwd", "rasterize_bwd", "segment_sum",
-           "dma_bench", "resize")
+           "dma_bench", "resize", "projection")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _c_int, _c_i64, _ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+_c_f32 = ctypes.c_float
 # C signatures: function -> (restype, argtypes)
 SIGNATURES = {
     "scan": {
@@ -92,6 +93,30 @@ SIGNATURES = {
             _ptr, _ptr, _c_int,              # ybounds yk yksize
             _c_int, _c_int, _c_int, _c_int,  # log_tile_w tile_h rows row_bytes
             _c_int,                          # taps
+            _ptr,                            # stream
+        ]),
+    },
+    "projection": {
+        "gts_project_fwd": (_c_int, [
+            _ptr, _ptr, _ptr, _ptr,          # means3d scales_raw quats opac_raw
+            _ptr, _ptr, _ptr,                # sh_dc sh_rest alive
+            _ptr, _ptr, _ptr, _ptr,          # viewmat full_proj campos tanfov
+            _c_i64, _c_int, _c_int,          # n n_cams k_rest
+            _c_int, _c_int, _c_int, _c_f32,  # img_h img_w sh_degree scale_mod
+            _ptr, _ptr, _ptr,                # means2d conics colors
+            _ptr, _ptr, _ptr,                # opacities depths radii
+            _ptr,                            # stream
+        ]),
+        "gts_project_bwd": (_c_int, [
+            _ptr, _ptr, _ptr, _ptr,          # means3d scales_raw quats opac_raw
+            _ptr, _ptr,                      # sh_dc sh_rest
+            _ptr, _ptr, _ptr, _ptr,          # viewmat full_proj campos tanfov
+            _ptr,                            # radii
+            _ptr, _ptr, _ptr, _ptr,          # g_means2d g_conics g_colors g_opac
+            _c_i64, _c_int, _c_int,          # n n_cams k_rest
+            _c_int, _c_int, _c_int, _c_f32,  # img_h img_w sh_degree scale_mod
+            _ptr, _ptr, _ptr,                # d_means3d d_scales_raw d_quats
+            _ptr, _ptr, _ptr,                # d_opac_raw d_sh_dc d_sh_rest
             _ptr,                            # stream
         ]),
     },

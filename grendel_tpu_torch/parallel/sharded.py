@@ -49,11 +49,11 @@ from ..engine.train import (TrainState, XyzLrSchedule,
                             normalize_grads_by_visibility)
 from ..models.densify import (SPLIT_N, accumulate_densify_stats,
                               densify_and_prune, reset_opacity)
-from ..models.gaussian_model import GaussianParams, activated
+from ..models.gaussian_model import GaussianParams
 from ..models.optimizer import LrConfig, adam_step
 from ..ops.isect import (compact_entries_blocked, compact_entries_flat,
                          isect_tile_rows, isect_tile_rows_blocked)
-from ..ops.projection import ProjectedSplats, project_gaussians_batched
+from ..ops.projection import ProjectedSplats, project_params
 from ..ops.rasterize_cuda import rasterize_slots_fwd
 from ..ops.ssim import ssim_map
 from ..utils import prng
@@ -127,10 +127,8 @@ class ParallelConfig(NamedTuple):
 def project_batch(params: GaussianParams, alive, cams: CameraArrays,
                   cfg: ParallelConfig, sh_degree: int) -> ProjectedSplats:
     """Activate and project for every camera: (B, N, ...) leaves."""
-    act = activated(params)
-    return project_gaussians_batched(
-        act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
-        cams, cfg.img_h, cfg.img_w, sh_degree)
+    return project_params(params, alive, cams, cfg.img_h, cfg.img_w,
+                          sh_degree)
 
 
 def payload_and_meta(means2d, conics, rgbs, opacs, radii, depths):

@@ -59,10 +59,10 @@ def main(argv=None) -> dict:
     from ..engine.loss import batch_loss
     from ..engine.render import RenderConfig, render_batch
     from ..engine.train import XyzLrSchedule, train_state_init, train_step
-    from ..models.gaussian_model import GaussianParams, activated
+    from ..models.gaussian_model import GaussianParams
     from ..models.optimizer import adam_step, scaled_lrs
     from ..ops.isect import compact_entries_flat, isect_tiles
-    from ..ops.projection import ProjectedSplats, project_gaussians_batched
+    from ..ops.projection import ProjectedSplats, project_params
     from ..ops.rasterize_cuda import (rasterize_slots_fwd, rasterize_slots_vjp,
                                       segment_sum)
     from ..ops.scan_cuda import cumsum_i32_multi
@@ -84,12 +84,8 @@ def main(argv=None) -> dict:
         dev)
     tile_w, tile_h = (int(x) for x in a.tile.split("x"))
     tiles_x, tiles_y = -(-w // tile_w), -(-h // tile_h)
-    act = activated(params)
-
     def project():
-        return project_gaussians_batched(
-            act.means3d, act.scales, act.quats, act.opacities, act.sh, alive,
-            cams, h, w, sh_degree)
+        return project_params(params, alive, cams, h, w, sh_degree)
 
     with torch.no_grad():
         splats_b = project()

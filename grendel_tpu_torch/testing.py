@@ -38,10 +38,10 @@ from .device import DEFAULT_DEVICE, resolve_device
 from .engine.render import RenderConfig, render_image
 from .engine.train import (TrainState, XyzLrSchedule, train_state_init,
                            train_step)
-from .models.gaussian_model import GaussianParams, activated, round_capacity
+from .models.gaussian_model import GaussianParams, round_capacity
 from .models.optimizer import LrConfig, scaled_lrs
 from .ops.isect import isect_tiles
-from .ops.projection import project_gaussians
+from .ops.projection import ProjectedSplats, project_params
 from .ops.sh import rgb_to_sh
 from .utils.hbm import mantissa_round_cap
 
@@ -164,14 +164,11 @@ def garden_render_config(scene: Scene):
     budget likewise from the kept count. Returns (cfg, n_isect, n_kept)."""
     dev = scene.alive.device
     tw, th = GARDEN_TILE_W, GARDEN_TILE_H
-    act = activated(scene.params)
-    ca0 = camera_arrays(scene.cameras[0], dev)
+    cam0 = batch_camera_arrays(scene.cameras[:1], dev)
     with torch.no_grad():
-        s0 = project_gaussians(act.means3d, act.scales, act.quats,
-                               act.opacities, act.sh, scene.alive,
-                               ca0.viewmat, ca0.full_proj, ca0.campos,
-                               ca0.tanfov, scene.img_h, scene.img_w,
-                               scene.sh_degree)
+        s0 = ProjectedSplats(*(x[0] for x in project_params(
+            scene.params, scene.alive, cam0, scene.img_h, scene.img_w,
+            scene.sh_degree)))
         probe = isect_tiles(s0.means2d, s0.radii, s0.depths, tw, th,
                             -(-scene.img_w // tw), -(-scene.img_h // th),
                             1 << 23, opacities=s0.opacities)
@@ -204,16 +201,11 @@ def garden_blend_inputs(params: GaussianParams, alive, scene: Scene,
     as ``engine.render.render_batch``."""
     from .engine.render import _slot_origins
     from .ops.isect import compact_entries_blocked, isect_tile_rows_blocked
-    from .ops.projection import ProjectedSplats, project_gaussians_batched
-
     dev = alive.device
     bsz = len(scene.cameras)
     cams = batch_camera_arrays(scene.cameras, dev)
-    act = activated(params)
-    splats = project_gaussians_batched(act.means3d, act.scales, act.quats,
-                                       act.opacities, act.sh, alive, cams,
-                                       scene.img_h, scene.img_w,
-                                       scene.sh_degree)
+    splats = project_params(params, alive, cams, scene.img_h, scene.img_w,
+                            scene.sh_degree)
     n = splats.means2d.shape[0] * splats.means2d.shape[1]
     flat = ProjectedSplats(*(x.reshape((n,) + x.shape[2:]) for x in splats))
     isect = isect_tile_rows_blocked(

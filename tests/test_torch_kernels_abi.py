@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` exports plain ``extern "C"`` functions that
 the wrong count or width of arguments shows on the card only as a crash,
 so each prototype is parsed from the source and held to its binding:
 the same functions, the same number of arguments, and each argument of
-the same kind (pointer, 32-bit or 64-bit integer), the return type too.
+the same kind (pointer, 32-bit or 64-bit integer, 32-bit float), the
+return type too.
 """
 
 import ctypes
@@ -18,10 +19,12 @@ from grendel_tpu_torch import kernels
 
 _INT32 = {"int", "int32_t", "uint32_t", "unsigned"}
 _INT64 = {"int64_t", "uint64_t", "size_t"}
+_FLOAT32 = {"float"}
 
 
 def _c_kind(decl: str) -> str:
-    """'ptr', 'i32' or 'i64' of one C parameter or return declaration."""
+    """'ptr', 'i32', 'i64' or 'f32' of one C parameter or return
+    declaration."""
     if "*" in decl:
         return "ptr"
     words = [w for w in re.findall(r"[A-Za-z_]\w*", decl) if w != "const"]
@@ -31,6 +34,8 @@ def _c_kind(decl: str) -> str:
             return "i32"
         if w in _INT64:
             return "i64"
+        if w in _FLOAT32:
+            return "f32"
     raise AssertionError(f"unknown C type in {decl!r}")
 
 
@@ -42,6 +47,8 @@ def _ctypes_kind(t) -> str:
         return "i32"
     if t in (ctypes.c_int64, ctypes.c_uint64):
         return "i64"
+    if t is ctypes.c_float:
+        return "f32"
     raise AssertionError(f"unknown ctypes type {t}")
 
 
@@ -92,3 +99,16 @@ def test_the_parser_sees_a_mismatch():
     assert _extern_c_prototypes(fewer)["gts_scan_i32"][1] != want
     wider = src.replace("int n_channels", "int64_t n_channels")
     assert _extern_c_prototypes(wider)["gts_scan_i32"][1] != want
+
+
+def test_the_parser_tells_a_float_from_an_int():
+    """A float argument (the projection's scale modifier) reads as one,
+    and an int in its place is told apart from its binding."""
+    src = ('extern "C" {\n'
+           "int f(const float* x, int64_t n, float scale, void* stream) {\n"
+           "  return 0;\n}\n\n}  // extern \"C\"\n")
+    assert _extern_c_prototypes(src)["f"] == ("i32",
+                                              ["ptr", "i64", "f32", "ptr"])
+    assert _ctypes_kind(ctypes.c_float) == "f32"
+    as_int = src.replace("float scale", "int scale")
+    assert _extern_c_prototypes(as_int)["f"][1][2] == "i32"
